@@ -1,0 +1,171 @@
+"""Deployment benchmark: accuracy vs wall time for k-step adaptation
+(counterpart of metapde_tpu/cli/deploy_bench.py, MAML protocol).
+
+Load a meta-learned checkpoint, then for each k in --inner-steps-list adapt
+to n_eval fresh tasks with k learned-LR inner steps and report the wall time
+per task and the error against the FEM ground truth:
+
+    python -m metapde_tpu_torch.cli.deploy_bench --algo=maml \
+        --train.load_model_from_expt=results_poisson_maml/p30k_f32_s1 \
+        --inner-steps-list=0,1,2,5 --task.n_eval=8 --checkpoint=best
+
+Runs on CUDA unless given --device=cpu. Prints one JSON row per k, with the
+JAX CLI's keys plus the device, and writes them to
+deploy_bench_n<n_eval>[_best].jsonl in the checkpoint dir. The timing
+barrier is torch.cuda.synchronize(). Only --algo=maml is ported; LEAP,
+--energy_audit, deploy.n_starts > 1 and deploy.optimizer raise.
+"""
+
+import json
+import os
+import sys
+import time
+from functools import partial
+
+import numpy as np
+import torch
+
+from ..config import Config, parse_overrides
+from ..device import pop_device_flag, resolve_device
+from ..interop import params_from_numpy
+from ..train import checkpoints as ckpt
+from ..train import maml_driver
+from ..train.multistart import make_score_fn
+from ..train.validation import get_ground_truth, make_validation_fn, task_generator
+
+
+def device_barrier(device):
+    """Wait for the device's queued work (the timing barrier)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def load_model(cfg: Config, c, which: str, device):
+    """The checkpoint's (params, inner LRs) on `device`; returns
+    (model, state, fname, resolved_best)."""
+    expt = cfg.train.load_model_from_expt
+    if not expt:
+        raise SystemExit("--train.load_model_from_expt is required")
+    fname = None
+    resolved_best = False
+    if which == "best":
+        fname = ckpt.best_checkpoint(expt)
+        resolved_best = fname is not None
+        if not fname:
+            print("no checkpoint_best.pickle; falling back to latest")
+    fname = fname or ckpt.latest_checkpoint(expt)
+    if not fname:
+        raise SystemExit(f"no checkpoint under {expt}")
+    state = ckpt.load_checkpoint(fname)
+    params = params_from_numpy(state["params"], device)
+    lrs = (params_from_numpy(state["inner_lrs"], device)
+           if "inner_lrs" in state else c["inner_lrs"])
+    print(f"loaded {fname}")
+    return (params, lrs), state, fname, resolved_best
+
+
+def eval_tasks(cfg: Config, pde, device):
+    """The n_eval unseen tasks, their validation coords and ground truth.
+    Drawn on the host, so a CPU and a GPU run deploy on the same tasks."""
+    gen = torch.Generator().manual_seed(cfg.seed + 7919)
+    gt_params = [tuple(a.to(device) for a in pde.sample_params(gen))
+                 for _ in range(cfg.task.n_eval)]
+    return get_ground_truth(pde, gt_params, gen, cfg.task.validation_points,
+                            cfg.solver.ground_truth_resolution)
+
+
+def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
+        repeats: int = 3, which: str = "latest", energy_audit: bool = False,
+        device="cuda"):
+    if algo != "maml":
+        raise NotImplementedError(f"--algo={algo}: only maml is ported")
+    if energy_audit:
+        raise NotImplementedError("--energy_audit is not ported yet")
+    device = resolve_device(str(device))
+    c = maml_driver.build(cfg, device)
+    pde = c["pde"]
+    model, state, fname, resolved_best = load_model(cfg, c, which, device)
+    bundle = eval_tasks(cfg, pde, device)
+
+    # oracle-free quality signal: the self-computable total task loss of the
+    # deployed model on a fixed fresh point draw
+    score_fn = make_score_fn(pde, c["loss_fn"], c["field"],
+                             cfg.deploy.score_points or cfg.task.validation_points)
+
+    def self_losses(k):
+        out = []
+        for i, tp in enumerate(bundle.gt_params):
+            fp = c["deploy_final_model"](task_generator(i), model, tp, int(k))
+            with torch.no_grad():
+                out.append(score_fn(task_generator(1), fp, tp))
+        return torch.stack(out).cpu().numpy()
+
+    device_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                   else "cpu")
+    rows = []
+    for k in inner_steps_list:
+        val_fn = make_validation_fn(
+            pde, partial(c["make_coef_func"], inner_steps=int(k)), cfg.task.n_eval)
+        val = val_fn(model, bundle.gt_params, bundle.coords, bundle.gt_vals)
+        device_barrier(device)  # warm-up
+
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            val = val_fn(model, bundle.gt_params, bundle.coords, bundle.gt_vals)
+            device_barrier(device)
+        dt = (time.perf_counter() - t0) / repeats
+        sl = self_losses(k)
+        row = {
+            "inner_steps": int(k),
+            "n_eval": int(cfg.task.n_eval),
+            "checkpoint": os.path.basename(fname),
+            "checkpoint_step": int(state.get("step", -1)),
+            "device": device_name,
+            "time_per_task_s": dt / cfg.task.n_eval,
+            "val_mse": float(val.mse),
+            "val_rel_err": float(val.rel_err),
+            "val_rel_err_std": float(val.rel_err_std),
+            "val_rel_err_median": float(val.rel_err_median),
+            "val_rel_err_p90": float(val.rel_err_p90),
+            "self_loss_mean": float(np.mean(sl)),
+            "self_loss_median": float(np.median(sl)),
+            "self_loss_max": float(np.max(sl)),
+        }
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    suffix = f"_n{cfg.task.n_eval}" + ("_best" if resolved_best else "")
+    out = os.path.join(cfg.train.load_model_from_expt, f"deploy_bench{suffix}.jsonl")
+    with open(out, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+    print(f"wrote {out}")
+    return rows
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    device, argv = pop_device_flag(argv)
+    algo, steps_list, repeats, which, rest = (
+        "maml", (0, 1, 2, 5, 10, 20), 3, "latest", [])
+    energy_audit = False
+    for a in argv:
+        if a.startswith("--algo="):
+            algo = a.split("=", 1)[1]
+        elif a.startswith("--inner-steps-list="):
+            steps_list = tuple(int(x) for x in a.split("=", 1)[1].split(","))
+        elif a.startswith("--repeats="):
+            repeats = int(a.split("=", 1)[1])
+        elif a.startswith("--checkpoint="):
+            which = a.split("=", 1)[1]
+        elif a == "--energy_audit":
+            energy_audit = True
+        else:
+            rest.append(a)
+    cfg = parse_overrides(Config(), rest)
+    return run(cfg, algo=algo, inner_steps_list=steps_list, repeats=repeats,
+               which=which, energy_audit=energy_audit, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,35 @@
+"""PDE task registry (counterpart of metapde_tpu/pdes/registry.py).
+
+A PdeDef bundles the pure functions of one task family. Samplers take a
+torch.Generator (draws happen on the generator's device); loss functions
+take explicit points, so tests can pass in the points JAX drew.
+"""
+
+from typing import Callable, NamedTuple
+
+from ..config import TaskConfig
+
+
+class PdeDef(NamedTuple):
+    name: str
+    in_dim: int        # coordinate dimension fed to the field
+    out_dim: int       # field output dimension
+    scalar: bool       # scalar field (out squeezed to [N])
+    sample_params: Callable          # gen -> task params (tuple of tensors)
+    sample_points: Callable          # (gen, n, params) -> tuple of point sets
+    sample_points_in_domain: Callable  # (gen, n, params) -> [n, in_dim]
+    loss_fn: Callable  # (field_fn, points, params) -> (boundary_losses, domain_losses)
+    solve: Callable    # (params, resolution) -> ground-truth tuple
+    evaluate_gt: Callable  # (gt, x [N, in_dim]) -> values [N]
+    sample_validation_points: Callable  # (gen, n, params, gt) -> [n, in_dim]
+
+
+def get_pde(cfg: TaskConfig) -> PdeDef:
+    """Build the PdeDef for cfg.pde. Only "poisson" is ported so far."""
+    if cfg.pde == "poisson":
+        from . import poisson
+
+        return poisson.make_pde(cfg)
+    if cfg.pde in ("td_burgers", "hyper_elasticity", "steady_burgers", "poisson3d"):
+        raise NotImplementedError(f"pde {cfg.pde!r} is not ported yet")
+    raise ValueError(f"unrecognized pde: {cfg.pde!r}")

@@ -1,0 +1,88 @@
+"""Ground truth and validation metrics
+(counterpart of metapde_tpu/train/validation.py: the plain branch, without
+symmetry, per-timestep or branch-aware metrics, and without a cache).
+
+Metric semantics kept from the JAX package:
+- val_mse: mean squared error of the k-step-adapted field against the
+  ground truth at the validation coords, over all eval tasks.
+- rel_sq_err: err^2 / mean(gt^2 over points); rel_err is its mean,
+  rel_err_std the (population) std of the per-task means, rel_err_median and
+  rel_err_p90 their median and 90th percentile (linear interpolation, as
+  jnp.median and jnp.percentile).
+The JAX package vmaps over tasks; here the tasks are a Python loop.
+"""
+
+from typing import Callable, NamedTuple
+
+import torch
+
+
+class GroundTruthBundle(NamedTuple):
+    gts: list              # per-task ground-truth tuples
+    gt_vals: torch.Tensor  # [n_eval, V, out_dim]
+    coords: torch.Tensor   # [n_eval, V, in_dim]
+    gt_params: list        # per-task params tuples
+
+
+def get_ground_truth(pde, gt_params_list, gen, n_points, resolution) -> GroundTruthBundle:
+    """Solve each eval task and tabulate its values at `n_points` validation
+    coords drawn from `gen`, on the task params' device."""
+    gts, coords, vals = [], [], []
+    for params in gt_params_list:
+        gt = pde.solve(params, resolution=resolution)
+        pts = pde.sample_validation_points(gen, n_points, params, gt)
+        v = pde.evaluate_gt(gt, pts)
+        gts.append(gt)
+        coords.append(pts)
+        vals.append(v[:, None] if v.ndim == 1 else v)
+    return GroundTruthBundle(gts=gts, gt_vals=torch.stack(vals),
+                             coords=torch.stack(coords), gt_params=list(gt_params_list))
+
+
+class ValidationResult(NamedTuple):
+    mse: torch.Tensor
+    norms: torch.Tensor           # per-dim mean of gt^2
+    rel_err: torch.Tensor         # mean relative squared error
+    per_dim_rel_err: torch.Tensor
+    rel_err_std: torch.Tensor     # std of per-task rel err
+    rel_err_median: torch.Tensor
+    rel_err_p90: torch.Tensor
+
+
+def task_generator(i: int) -> torch.Generator:
+    """The fixed host generator of eval task i: every validation call draws
+    the same adaptation points for a task (the JAX package's
+    split(PRNGKey(0))), on every device."""
+    return torch.Generator().manual_seed(i)
+
+
+def make_validation_fn(pde, make_coef_func: Callable, n_eval: int):
+    """Build the validation-error function.
+
+    make_coef_func: (gen, model, task_params, coords) -> [V] or [V, out]
+    values of the adapted model at coords.
+    """
+
+    def validation_error(model, gt_params, coords, gt_vals) -> ValidationResult:
+        coefs = torch.stack([
+            make_coef_func(task_generator(i), model, gt_params[i], coords[i])
+            for i in range(n_eval)])
+        coefs = coefs.reshape(coefs.shape[0], coefs.shape[1], -1)
+        gt = gt_vals.reshape(coefs.shape)
+        err = coefs - gt
+        mse = torch.mean(err ** 2)
+
+        normalizer = torch.mean(gt ** 2, dim=1, keepdim=True)  # [T,1,D]
+        rel_sq_err = err ** 2 / normalizer.mean(dim=2, keepdim=True)
+        per_task_rel = torch.mean(rel_sq_err, dim=(1, 2))
+        return ValidationResult(
+            mse=mse,
+            norms=torch.mean(normalizer, dim=(0, 1)),
+            rel_err=torch.mean(rel_sq_err),
+            per_dim_rel_err=torch.mean(rel_sq_err, dim=(0, 1)),
+            rel_err_std=torch.std(per_task_rel, unbiased=False),
+            rel_err_median=torch.quantile(per_task_rel, 0.5),
+            rel_err_p90=torch.quantile(per_task_rel, 0.9),
+        )
+
+    return validation_error

@@ -1,0 +1,172 @@
+"""The Poisson MAML deployment slice, JAX package against its PyTorch port.
+
+Both packages load the committed p30k_f32_s1 checkpoint with their own
+loaders, then deploy it on the same two tasks: same task params, the same
+inner points (the ones JAX's get_final_model draws), the same validation
+coords. Each side adapts the full-width 3x64 SIREN with k = 5 learned-LR
+steps, solves the FEM ground truth at resolution 8 and computes the
+validation metrics.
+
+Tolerance: rtol 1e-3 on the metrics and 1e-4 (relative to each leaf's
+scale) on the adapted params. The two sides sum in other orders (f32), and
+the two ground-truth solves stop at different iterates of the same
+Newton-BiCGStab inside its tolerance (gt values differ by up to ~3e-5 at
+res 8, bar 1e-4).
+"""
+
+from functools import partial
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from metapde_tpu.config import Config as JConfig
+from metapde_tpu.config import parse_overrides as j_parse_overrides
+from metapde_tpu.solvers import fem_poisson as j_fem
+from metapde_tpu.train import checkpoints as j_ckpt
+from metapde_tpu.train import maml_driver as j_driver
+from metapde_tpu.train.validation import make_validation_fn as j_make_validation_fn
+from metapde_tpu_torch.cli import deploy_bench
+from metapde_tpu_torch.config import Config, parse_overrides
+from metapde_tpu_torch.interop import params_from_numpy, params_to_numpy
+from metapde_tpu_torch.solvers import fem_poisson
+from metapde_tpu_torch.train import checkpoints, maml_driver
+from metapde_tpu_torch.train.validation import make_validation_fn
+from metapde_tpu_torch.utils.trees import tree_leaves
+
+torch.set_num_threads(1)
+
+RUN_DIR = Path(__file__).resolve().parents[1] / "results_poisson_maml" / "p30k_f32_s1"
+CKPT = RUN_DIR / "checkpoint_best.pickle"
+OVERRIDES = ["--model.use_pallas_inference=true", "--task.n_eval=2",
+             "--task.inner_points=256", "--task.validation_points=256"]
+K = 5
+RES = 8
+
+
+def _np_leaves(tree):
+    return [np.asarray(l) for l in jax.tree_util.tree_leaves(tree)]
+
+
+def test_checkpoint_loaders_agree():
+    j_state = j_ckpt.load_checkpoint(str(CKPT))
+    t_state = checkpoints.load_checkpoint(str(CKPT))
+    assert t_state["step"] == j_state["step"]
+    for key in ("params", "inner_lrs"):
+        a, b = _np_leaves(j_state[key]), [np.asarray(l) for l in tree_leaves(t_state[key])]
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    # optimizer states come back as inert placeholders, never as optax objects
+    assert all(isinstance(o, checkpoints.InertPlaceholder) for o in t_state["opt_state"])
+
+
+def test_params_roundtrip_through_interop():
+    state = checkpoints.load_checkpoint(str(CKPT))
+    back = params_to_numpy(params_from_numpy(state["params"]))
+    for x, y in zip(tree_leaves(state["params"]), tree_leaves(back)):
+        np.testing.assert_array_equal(np.asarray(x), y)
+
+
+def test_deploy_slice_matches_jax():
+    jc = j_driver.build(j_parse_overrides(JConfig(), OVERRIDES))
+    tc = maml_driver.build(parse_overrides(Config(), OVERRIDES), "cpu")
+    j_pde, t_pde = jc["pde"], tc["pde"]
+
+    j_state = j_ckpt.load_checkpoint(str(CKPT))
+    j_model = jax.tree_util.tree_map(jnp.asarray, (j_state["params"], j_state["inner_lrs"]))
+    t_state = checkpoints.load_checkpoint(str(CKPT))
+    t_model = (params_from_numpy(t_state["params"]),
+               params_from_numpy(t_state["inner_lrs"]))
+
+    # shared tasks, validation coords and inner points, all drawn by JAX
+    task_keys = jax.random.split(jax.random.PRNGKey(7919), 2)
+    j_tasks = [j_pde.sample_params(k) for k in task_keys]
+    t_tasks = [tuple(torch.tensor(np.asarray(a)) for a in tp) for tp in j_tasks]
+    coords = jnp.stack([j_pde.sample_validation_points(jax.random.PRNGKey(50 + i), 256, tp)
+                        for i, tp in enumerate(j_tasks)])
+    val_keys = jax.random.split(jax.random.PRNGKey(0), 2)  # JAX validation's keys
+    inner_pts = [j_pde.sample_points(jax.random.split(k)[0], 256, tp)
+                 for k, tp in zip(val_keys, j_tasks)]
+
+    # ground truth on each side
+    j_gts = [j_fem.solve(tp, resolution=RES) for tp in j_tasks]
+    j_vals = jnp.stack([jax.vmap(lambda x: j_fem.evaluate(g, x))(c)[:, None]
+                        for g, c in zip(j_gts, coords)])
+    t_coords = torch.tensor(np.asarray(coords))
+    t_gts = [fem_poisson.solve(tp, resolution=RES) for tp in t_tasks]
+    t_vals = torch.stack([fem_poisson.evaluate(g, c)[:, None] for g, c in zip(t_gts, t_coords)])
+    # both solves stop inside the Newton tolerance (relative residual 8e-5 at res 8)
+    np.testing.assert_allclose(t_vals.numpy(), np.asarray(j_vals), atol=1e-4)
+
+    # k-step adaptation on shared inner points
+    for tp_j, tp_t, pts, key in zip(j_tasks, t_tasks, inner_pts, val_keys):
+        j_fp = jc["get_final_model"](key, j_model, tp_j, K)
+        t_pts = tuple(torch.tensor(np.asarray(p)) for p in pts)
+        t_fp = tc["get_final_model"](None, t_model, tp_t, K, points=t_pts)
+        for a, b in zip(_np_leaves(j_fp), tree_leaves(t_fp)):
+            scale = max(np.abs(a).max(), 1e-3)
+            np.testing.assert_allclose(b.numpy(), a, rtol=0, atol=1e-4 * scale)
+
+    # validation metrics through each package's validation function
+    j_val = j_make_validation_fn(
+        j_pde, partial(jc["make_coef_func"], inner_steps=K), 2)(
+        j_model, jax.tree_util.tree_map(lambda *x: jnp.stack(x), *j_tasks), coords, j_vals)
+    t_pts_iter = iter([tuple(torch.tensor(np.asarray(p)) for p in pts) for pts in inner_pts])
+
+    def t_coef(gen, model, task_params, c):
+        fp = tc["get_final_model"](gen, model, task_params, K, points=next(t_pts_iter))
+        with torch.no_grad():
+            return torch.squeeze(tc["field"].apply_inference(fp, c))
+
+    t_val = make_validation_fn(t_pde, t_coef, 2)(t_model, t_tasks, t_coords, t_vals)
+    for name in ("mse", "rel_err", "rel_err_std", "rel_err_median", "rel_err_p90"):
+        np.testing.assert_allclose(float(getattr(t_val, name)),
+                                   float(getattr(j_val, name)), rtol=1e-3, err_msg=name)
+
+
+def test_deploy_bench_cli_on_cpu(tmp_path):
+    """The port's CLI end to end on the CPU, small: rows for every k, finite,
+    written where the JAX CLI writes them, and adaptation lowers the error."""
+    run_dir = tmp_path / "p30k_f32_s1"
+    run_dir.mkdir()
+    (run_dir / "checkpoint_best.pickle").write_bytes(CKPT.read_bytes())
+    rows = deploy_bench.main([
+        "--device=cpu", "--algo=maml", f"--train.load_model_from_expt={run_dir}",
+        "--model.use_pallas_inference=true", "--solver.ground_truth_resolution=4",
+        "--task.n_eval=2", "--task.validation_points=128", "--task.inner_points=128",
+        "--inner-steps-list=0,2", "--checkpoint=best", "--repeats=1"])
+    assert [r["inner_steps"] for r in rows] == [0, 2]
+    assert all(np.isfinite(v) for r in rows for v in r.values() if isinstance(v, float))
+    assert rows[1]["val_rel_err_median"] < rows[0]["val_rel_err_median"]
+    assert (run_dir / "deploy_bench_n2_best.jsonl").exists()
+    assert rows[0]["device"] == "cpu"
+
+
+def test_deploy_bench_raises_for_unported_options(tmp_path):
+    base = ["--device=cpu", f"--train.load_model_from_expt={tmp_path}"]
+    with pytest.raises(NotImplementedError):
+        deploy_bench.main(base + ["--algo=leap"])
+    with pytest.raises(NotImplementedError):
+        deploy_bench.main(base + ["--energy_audit"])
+    with pytest.raises(NotImplementedError):
+        deploy_bench.main(base + ["--deploy.n_starts=2"])
+    with pytest.raises(NotImplementedError):
+        deploy_bench.main(base + ["--deploy.optimizer=adam"])
+
+
+def test_profile_deploy_on_cpu_reports_no_device_numbers():
+    from metapde_tpu_torch.cli import profile_deploy
+
+    assert profile_deploy._busy_us([(0, 2), (1, 3), (5, 6)]) == 4
+    rows = profile_deploy.main([
+        "--device=cpu", f"--train.load_model_from_expt={RUN_DIR}", "--checkpoint=best",
+        "--task.n_eval=1", "--solver.ground_truth_resolution=2",
+        "--task.validation_points=64", "--task.inner_points=64", "--inner-steps-list=0,1"])
+    assert [r["k"] for r in rows] == [0, 1]
+    for r in rows:
+        assert r["wall_ms_per_task"] > 0
+        assert r["device_busy_ms_per_task"] is None and r["device_idle_share"] is None

@@ -1,0 +1,128 @@
+"""The port stands alone: no JAX, no optax, nothing of metapde_tpu; entry
+points refuse a missing CUDA device instead of falling back; chip_smoke.py
+fails without a card and prints no result; no binary or large file in the
+package."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from metapde_tpu_torch import device as device_mod
+from metapde_tpu_torch.cli import deploy_bench
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "metapde_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "metapde_tpu")
+
+
+def _modules():
+    out = []
+    for path in sorted(PACKAGE.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        out.append(".".join(parts))
+    return out
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    return env
+
+
+def _forbidden(name):
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    mods = _modules()
+    assert "metapde_tpu_torch.cli.deploy_bench" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(repr(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=REPO, env=_env(), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def _imported_names(path):
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    names = _imported_names(REPO / "chip_smoke.py")
+    assert "metapde_tpu_torch.cli" in names
+    assert not [n for n in names if _forbidden(n)]
+    # and the port modules it names import nothing of JAX either
+    ours = [n for n in names if n.startswith("metapde_tpu_torch")]
+    code = ("import importlib, sys\n"
+            f"for m in {ours!r}: importlib.import_module(m)\n"
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=REPO, env=_env(), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_package_source_imports_are_clean():
+    for path in PACKAGE.rglob("*.py"):
+        bad = [n for n in _imported_names(path) if _forbidden(n)]
+        assert not bad, (path, bad)
+
+
+def test_entry_point_refuses_missing_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        device_mod.resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        deploy_bench.main([f"--train.load_model_from_expt={tmp_path}"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        deploy_bench.run(deploy_bench.Config())
+    assert device_mod.resolve_device("cpu") == torch.device("cpu")
+    dev, rest = device_mod.pop_device_flag(["--device=cpu", "--task.n_eval=2"])
+    assert dev == torch.device("cpu") and rest == ["--task.n_eval=2"]
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], capture_output=True,
+                         text=True, cwd=REPO, env=_env(), timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True, text=True,
+                         cwd=tmp_path, env=env, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_no_binary_or_large_file_in_the_package():
+    for path in PACKAGE.rglob("*"):
+        if not path.is_file() or "__pycache__" in path.parts:
+            continue
+        data = path.read_bytes()
+        assert len(data) <= 200_000, path
+        assert b"\0" not in data, path
+        data.decode("utf-8")

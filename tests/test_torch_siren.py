@@ -1,0 +1,170 @@
+"""SIREN field and fused-inference parity: metapde_tpu against metapde_tpu_torch.
+
+Shared inputs: params made by the JAX package's init and carried over with
+interop.params_from_numpy; points from a numpy seed. Tolerance 1e-5 in f32
+(the bar of tests/test_pallas_siren.py), taken relative to each output's
+largest magnitude for the Hessian diagonal, which carries omega^2 = 900.
+The Pallas kernel runs in interpret mode on the CPU, as its own tests run it.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from metapde_tpu.config import FieldConfig as JFieldConfig
+from metapde_tpu.models import make_field as j_make_field
+from metapde_tpu.ops import pallas_siren
+from metapde_tpu_torch.config import FieldConfig
+from metapde_tpu_torch.interop import params_from_numpy
+from metapde_tpu_torch.models import make_field
+from metapde_tpu_torch.models.siren import field_apply_vhd
+from metapde_tpu_torch.ops import siren_fused
+from metapde_tpu_torch.utils.trees import tree_map
+
+torch.set_num_threads(1)
+
+TOL = 1e-5
+
+FIELD_CASES = [
+    dict(),
+    dict(log_scale=False),
+    dict(out_dim=2, squeeze_scalar=False),
+    dict(num_layers=8),
+    dict(siren=False),
+    dict(n_fourier=3),
+]
+
+
+def _pair(kw, seed=0):
+    """(jax field, torch field, jax params, torch params) for one config."""
+    kw = {"num_layers": 3, "layer_size": 64, "in_dim": 2, **kw}
+    j_field, t_field = j_make_field(JFieldConfig(**kw)), make_field(FieldConfig(**kw))
+    j_params = j_field.init(jax.random.PRNGKey(seed))
+    t_params = params_from_numpy(jax.tree_util.tree_map(np.asarray, j_params))
+    return j_field, t_field, j_params, t_params
+
+
+def _points(n, d=2, seed=1):
+    return np.random.default_rng(seed).uniform(-1, 1, (n, d)).astype(np.float32)
+
+
+def _close(actual, expected, rel=False):
+    actual, expected = np.asarray(actual), np.asarray(expected)
+    assert actual.shape == expected.shape
+    scale = max(np.abs(expected).max(), 1.0) if rel else 1.0
+    assert np.abs(actual - expected).max() <= TOL * scale
+
+
+@pytest.mark.parametrize("kw", FIELD_CASES)
+def test_field_apply_matches_jax(kw):
+    j_field, t_field, j_params, t_params = _pair(kw)
+    x = _points(300)
+    _close(t_field.apply(t_params, torch.tensor(x)), j_field.apply(j_params, x))
+
+
+@pytest.mark.parametrize("kw", FIELD_CASES)
+def test_field_apply_vhd_matches_jax(kw):
+    j_field, t_field, j_params, t_params = _pair(kw)
+    x = _points(200)
+    for a, b in zip(t_field.apply_vhd(t_params, torch.tensor(x)),
+                    j_field.apply_vhd(j_params, x)):
+        _close(a, b, rel=True)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(siren=False), dict(n_fourier=2)])
+def test_field_apply_vhd_matches_autograd(kw):
+    _, t_field, _, t_params = _pair(kw)
+    cfg = t_field.cfg
+    x = torch.tensor(_points(16), dtype=torch.float64)
+    p64 = tree_map(lambda t: t.double(), t_params)
+    u, g, hd = field_apply_vhd(p64, x, cfg)
+    f = lambda xi: t_field.apply(p64, xi[None])[0]
+    for i in range(x.shape[0]):
+        np.testing.assert_allclose(g[i].numpy(), torch.func.grad(f)(x[i]).numpy(),
+                                   rtol=1e-9, atol=1e-9)
+        hess = torch.func.hessian(f)(x[i])
+        np.testing.assert_allclose(hd[i].numpy(), torch.diagonal(hess).numpy(),
+                                   rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(u.numpy(), t_field.apply(p64, x).numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(), dict(log_scale=False), dict(out_dim=2, squeeze_scalar=False),
+     dict(num_layers=8)],
+)
+def test_fused_reference_matches_pallas_kernel(kw):
+    j_field, _, j_params, t_params = _pair(kw)
+    cfg = dataclasses.replace(FieldConfig(), **{"num_layers": 3, "layer_size": 64, **kw})
+    j_cfg = j_field.cfg
+    x = _points(1500)
+    u_kernel = pallas_siren.siren_apply_fused(j_params, x, j_cfg)
+    u_ref = siren_fused.siren_apply_fused_reference(t_params, torch.tensor(x), cfg)
+    _close(u_ref, u_kernel)
+
+
+def test_dispatcher_falls_back_for_fourier():
+    _, t_field, _, t_params = _pair(dict(n_fourier=3, use_pallas_inference=True))
+    x = torch.tensor(_points(64))
+    before = siren_fused.siren_apply_fused.launches
+    u = t_field.apply_inference(t_params, x)
+    np.testing.assert_allclose(u.numpy(), t_field.apply(t_params, x).numpy(), atol=1e-6)
+    assert siren_fused.siren_apply_fused.launches == before
+
+
+def test_dispatcher_opt_in():
+    """Off by default; when on, it agrees with apply (on the CPU the wrapper
+    takes the plain version, so no launch is counted)."""
+    x = torch.tensor(_points(300))
+    _, t_off, _, p = _pair(dict())
+    _, t_on, _, _ = _pair(dict(use_pallas_inference=True))
+    calls = []
+    orig = siren_fused.siren_apply_fused
+    try:
+        siren_fused.siren_apply_fused = lambda *a: calls.append(1) or orig(*a)
+        u_off = t_off.apply_inference(p, x)
+        assert calls == []
+        u_on = t_on.apply_inference(p, x)
+        assert calls == [1]
+    finally:
+        siren_fused.siren_apply_fused = orig
+    _close(u_on, t_on.apply(p, x))
+    _close(u_off, t_off.apply(p, x))
+    assert orig.launches == 0
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    _, t_field, _, p = _pair(dict())
+    cfg = t_field.cfg
+    x = torch.tensor(_points(8))
+    with pytest.raises(ValueError):  # neither cpu nor cuda: no silent fallback
+        siren_fused.siren_apply_fused(
+            tree_map(lambda t: t.to("meta"), p), x.to("meta"), cfg)
+    with pytest.raises(ValueError):
+        siren_fused.siren_apply_fused(p, x.double(), cfg)
+    with pytest.raises(ValueError):
+        siren_fused.siren_apply_fused(p, torch.zeros(8, 3), cfg)
+    _, wide, _, pw = _pair(dict(layer_size=130))
+    with pytest.raises(ValueError):
+        siren_fused.siren_apply_fused(pw, x, wide.cfg)
+
+
+def test_init_distribution_bounds():
+    cfg = FieldConfig(num_layers=3, layer_size=64)
+    p = make_field(cfg).init(torch.Generator().manual_seed(0))
+    w0, w1, wo = p["layers"][0]["w"], p["layers"][1]["w"], p["layers"][-1]["w"]
+    assert w0.shape == (2, 64) and w1.shape == (64, 64) and wo.shape == (64, 1)
+    assert float(w0.abs().max()) <= 0.5  # (omega0/omega) / fan_in
+    b = np.sqrt(6.0 / 64) / 30.0
+    assert float(w1.abs().max()) <= b and float(w1.abs().max()) > 0.9 * b
+    assert all(float(l["b"].abs().max()) == 0.0 for l in p["layers"])
+    np.testing.assert_allclose(p["log_in_scale"].numpy(), np.log(0.1), rtol=1e-6)
+
+
+def test_compute_dtype_is_not_ported():
+    _, t_field, _, p = _pair(dict(compute_dtype="bfloat16"))
+    with pytest.raises(NotImplementedError):
+        t_field.apply(p, torch.tensor(_points(4)))
