@@ -5,19 +5,35 @@
 
 Phases, each printing one JSON line (flushed) with its name and seconds:
   0 device    torch and CUDA versions, nvidia-smi's name and power limit
-  1 build     nvcc builds csrc/siren_fused.cu for sm_90a (or finds it built)
+  1 build     nvcc builds csrc/siren_fused.cu for sm_90a (or finds it built),
+              with ptxas's register and spill report
   2 kernel    siren_fused against its plain PyTorch version on the card, max
-              |diff| <= 1e-5 on five configs at the main path's and larger
-              shapes; CUDA-event times (median of 20 after 3 warm-ups) and the
-              card's least time for the same work
+              |diff| <= 1e-5 on twelve cases: the four configs of
+              tests/test_pallas_siren.py, one task at the main path's shape
+              and at 2^20 points, 8 tasks x 1024 points in one launch with
+              per-task and with shared weights, 8 layers at width 128 (weights
+              streamed through shared memory), a ragged 3 x 1000, and two
+              per-task cases with more (task, tile) items than the grid has
+              blocks, so that blocks cross task boundaries: 8 x 2^14 at 3x64
+              (resident weights reloaded) and 3 x 2^15 at 8 layers of 128
+              (the streaming path across items and tasks); for the timed
+              cases, CUDA-event times (median of 20 after 3 warm-ups) of the
+              kernel alone on weights packed beforehand and of the wrapper
+              with its packing, the kernel's device time under torch.profiler
+              (launch gaps excluded), the plain version's time, and the
+              card's least time for the same work, both for this design
+              (bound_ms) and as f32 FMAs alone (bound_f32_ms, the bound of
+              earlier rows)
   3 parity    a small deployment on the card and on the CPU, same tasks and
               points: metrics agree to 1e-2
   4 deploy    the Poisson MAML deployment path end to end through
               cli/deploy_bench: checkpoint results_poisson_maml/p30k_f32_s1,
               8 fresh tasks, FEM ground truth at resolution 16, k = 0, 1, 2, 5
               learned-LR steps, inference through the kernel; checks that the
-              kernel launched, every value is finite, and the k = 5 median
-              relative error beats k = 0 and is within 3x of the JAX package's
+              kernel launched once per validation call (all tasks in one
+              launch: 4 values of k x (1 warm-up + 3 repeats) = 16), every
+              value is finite, and the k = 5 median relative error beats
+              k = 0 and is within 3x of the JAX package's
 Then a JSON line with every kernel's numbers and the total seconds, and
 last the ok line. A failed check raises: the exit code is then not 0. A
 watchdog ends a hung run after 480 s with a traceback. Needs a CUDA device;
@@ -36,11 +52,13 @@ import time
 from pathlib import Path
 
 import torch
+from torch.autograd import DeviceType
 
 from metapde_tpu_torch.cli import deploy_bench
 from metapde_tpu_torch.config import FieldConfig
 from metapde_tpu_torch.models import make_field
 from metapde_tpu_torch.ops import _build, siren_fused
+from metapde_tpu_torch.utils.trees import tree_map
 
 faulthandler.dump_traceback_later(480, exit=True)
 
@@ -58,9 +76,15 @@ K5_FACTOR = 3.0
 # card against CPU on the same deployment: the two FEM solves stop at
 # different iterates inside the Newton tolerance, and sums run in other orders
 PARITY_RTOL = 1e-2
-# H100 SXM published peaks (dense, at the 700 W limit): f32 outside the
-# tensor cores, and HBM bandwidth
+DEPLOY_KS = (0, 1, 2, 5)
+DEPLOY_REPEATS = 3
+# H100 SXM published peaks (dense, at the 700 W limit): TF32 on the tensor
+# cores, f32 outside them, and HBM bandwidth. The SFU returns 16 sines per
+# clock per SM where the CUDA cores do 128 f32 FMAs (2 flops each): the CUDA
+# C++ programming guide's throughput table for compute capability 9.0.
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
+PEAK_SFU_OPS = PEAK_F32_FLOPS * 16 / 256
 PEAK_HBM_BYTES = 3.35e12
 
 T_START = time.perf_counter()
@@ -88,15 +112,58 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def siren_bound_ms(cfg, n):
-    """Least time for the fused chain on n points: matmul FLOPs over the f32
-    peak against the bytes (x, params, out, each once) over HBM bandwidth."""
+def device_ms(fn, kernel="siren_fused_kernel", reps=20, warmup=3):
+    """Median device time in ms of the kernel named `kernel` per call of fn,
+    from torch.profiler's CUDA kernel events (launch gaps excluded); None
+    when the profiler records no such kernel."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return statistics.median(times) / 1e3 if times else None
+
+
+def _siren_bytes_ms(cfg, n, weight_sets):
+    """x, every weight set and out, each once, over HBM bandwidth."""
+    h, L = cfg.layer_size, cfg.num_layers
+    n_params = (cfg.in_dim * h + (L - 1) * h * h + h * cfg.out_dim
+                + L * h + cfg.out_dim + cfg.in_dim + cfg.out_dim)
+    return 1e3 * 4.0 * (n * (cfg.in_dim + cfg.out_dim) + weight_sets * n_params) / PEAK_HBM_BYTES
+
+
+def siren_bound_f32_ms(cfg, n, weight_sets=1):
+    """Least time for the fused chain on n points in all with every
+    multiply-add as an f32 FMA on the CUDA cores (the bound of the earlier
+    rows, kept so that rows compare across designs), against the bytes."""
     h, L = cfg.layer_size, cfg.num_layers
     macs = cfg.in_dim * h + (L - 1) * h * h + h * cfg.out_dim
-    n_params = macs + L * h + cfg.out_dim + cfg.in_dim + cfg.out_dim
-    t_ops = 2.0 * macs * n / PEAK_F32_FLOPS
-    t_bytes = 4.0 * (n * (cfg.in_dim + cfg.out_dim) + n_params) / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_ops = 1e3 * 2.0 * macs * n / PEAK_F32_FLOPS
+    t_bytes = _siren_bytes_ms(cfg, n, weight_sets)
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def siren_bound_ms(cfg, n, weight_sets=1):
+    """Least time for this kernel's design on n points in all: the larger of
+    the bytes and the slowest of the three pipes the work runs on, each at
+    its peak and all at once: the hidden x hidden layers as three TF32
+    tensor-core products (3xTF32), the first and output layers as f32 FMAs,
+    one SFU sine per hidden unit. Returns (ms, bound_by, {pipe: ms})."""
+    h, L = cfg.layer_size, cfg.num_layers
+    parts = {
+        "tensor_ms": 1e3 * 3 * 2.0 * (L - 1) * h * h * n / PEAK_TF32_FLOPS,
+        "fma_ms": 1e3 * 2.0 * (cfg.in_dim * h + h * cfg.out_dim) * n / PEAK_F32_FLOPS,
+        "sfu_ms": 1e3 * L * h * n / PEAK_SFU_OPS,
+        "bytes_ms": _siren_bytes_ms(cfg, n, weight_sets),
+    }
+    t_ops = max(parts["tensor_ms"], parts["fma_ms"], parts["sfu_ms"])
+    by = "operations" if t_ops >= parts["bytes_ms"] else "bytes"
+    return max(t_ops, parts["bytes_ms"]), by, parts
 
 
 def phase_device():
@@ -121,40 +188,95 @@ def phase_build():
          ptxas=[l.strip() for l in res.log.splitlines() if l.strip()])
 
 
+KERNEL_CASES = [  # (name, FieldConfig overrides, tasks, points, weights)
+    ("default", {}, 1, 1500, "one"),
+    ("no_log_scale", dict(log_scale=False), 1, 1500, "one"),
+    ("out_dim_2", dict(out_dim=2, squeeze_scalar=False), 1, 1500, "one"),
+    ("8_layers", dict(num_layers=8), 1, 1500, "one"),
+    ("main_path", {}, 1, 1024, "one"),             # one eval task's validation points
+    ("main_path_2pow20", {}, 1, 1 << 20, "one"),
+    ("main_path_batched", {}, 8, 1024, "per_task"),  # the deployment at k >= 1
+    ("main_path_shared", {}, 8, 1024, "shared"),     # the deployment at k = 0
+    ("wide_deep", dict(num_layers=8, layer_size=128), 1, 1500, "one"),
+    ("ragged", {}, 3, 1000, "per_task"),
+    # more items than blocks: a block walks several (task, tile) items and
+    # crosses task boundaries (reloading resident weights; streaming the
+    # next item's first layer while the last one computes)
+    ("tasks_cross", {}, 8, 1 << 14, "per_task"),
+    ("wide_deep_tasks", dict(num_layers=8, layer_size=128), 3, 1 << 15, "per_task"),
+]
+CROSSING = ("tasks_cross", "wide_deep_tasks")
+TIMED = ("main_path", "main_path_2pow20", "main_path_batched", "main_path_shared",
+         "tasks_cross")
+# csrc/siren_fused.cu: points per (task, tile) item, and the most blocks of
+# its 256 threads an SM holds (2048 threads), so the most its persistent
+# grid can have per SM
+KERNEL_TILE = 64
+MAX_BLOCKS_PER_SM = 8
+
+
+def _case_inputs(cfg, n_tasks, n, weights, seed):
+    """Params (stacked over tasks for "per_task", with biases and log scales
+    moved so that no two tasks share a leaf) and points, from a seed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    field = make_field(cfg)
+    if weights == "per_task":
+        sets = [field.init(gen, "cuda") for _ in range(n_tasks)]
+        params = tree_map(lambda *p: torch.stack(p), *sets)
+        params = tree_map(lambda t: t if t.ndim == 3 else t + 0.1 * torch.randn(
+            t.shape, device="cuda", generator=gen), params)
+    else:
+        params = field.init(gen, "cuda")
+    shape = (n, cfg.in_dim) if weights == "one" else (n_tasks, n, cfg.in_dim)
+    x = torch.empty(shape, device="cuda").uniform_(-1.0, 1.0, generator=gen)
+    return params, x
+
+
 def phase_kernel():
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     base = dict(num_layers=3, layer_size=64, in_dim=2)
-    cases = [  # (name, FieldConfig overrides, points)
-        ("default", {}, 1500),
-        ("no_log_scale", dict(log_scale=False), 1500),
-        ("out_dim_2", dict(out_dim=2, squeeze_scalar=False), 1500),
-        ("8_layers", dict(num_layers=8), 1500),
-        ("main_path", {}, 1024),      # one eval task's validation points
-        ("main_path_2pow20", {}, 1 << 20),
-    ]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
-    for i, (name, kw, n) in enumerate(cases):
+    for i, (name, kw, n_tasks, n, weights) in enumerate(KERNEL_CASES):
         cfg = FieldConfig(**{**base, **kw})
-        gen = torch.Generator(device="cuda").manual_seed(1000 + i)
-        params = make_field(cfg).init(gen, "cuda")
-        x = torch.empty((n, cfg.in_dim), device="cuda").uniform_(-1.0, 1.0, generator=gen)
-        out = siren_fused.siren_apply_fused(params, x, cfg)
+        params, x = _case_inputs(cfg, n_tasks, n, weights, 1000 + i)
+        shared = weights == "shared"
+        if weights == "one":
+            wrapper = lambda: siren_fused.siren_apply_fused(params, x, cfg)
+            plain = lambda: siren_fused.siren_apply_fused_reference(params, x, cfg)
+        else:
+            wrapper = lambda: siren_fused.siren_apply_fused_batched(params, x, cfg, shared)
+            plain = lambda: siren_fused.siren_apply_fused_batched_reference(
+                params, x, cfg, shared)
+        out = wrapper()
         torch.cuda.synchronize()
-        ref = siren_fused.siren_apply_fused_reference(params, x, cfg)
+        ref = plain()
         if out.shape != ref.shape:
             raise AssertionError(f"{name}: kernel shape {tuple(out.shape)} "
                                  f"!= plain {tuple(ref.shape)}")
         err = float((out - ref).abs().max())
         if not err <= KERNEL_TOL:
             raise AssertionError(f"{name}: kernel vs plain max|diff| {err} > {KERNEL_TOL}")
-        row = {"n": n, "max_abs_err": err}
-        if name.startswith("main_path"):
-            row["ms"] = cuda_ms(lambda: siren_fused.siren_apply_fused(params, x, cfg))
-            row["plain_ms"] = cuda_ms(
-                lambda: siren_fused.siren_apply_fused_reference(params, x, cfg))
-            row["bound_ms"], row["bound_by"] = siren_bound_ms(cfg, n)
+        row = {"tasks": n_tasks, "n": n, "weights": weights, "max_abs_err": err}
+        if name in CROSSING:
+            row["items"] = n_tasks * -(-n // KERNEL_TILE)
+            if not row["items"] > MAX_BLOCKS_PER_SM * n_sm:
+                raise AssertionError(f"{name}: {row['items']} items could each have a block")
+        if name in TIMED:
+            x3 = x if x.ndim == 3 else x[None]
+            dims = siren_fused.layer_dims(params, x3, cfg, weights != "per_task")
+            packed = siren_fused.pack(params, cfg, n_tasks, weights != "per_task", dims)
+            row["ms"] = cuda_ms(lambda: siren_fused.launch(packed, x3, cfg.omega))
+            row["device_ms"] = device_ms(lambda: siren_fused.launch(packed, x3, cfg.omega))
+            row["wrapper_ms"] = cuda_ms(wrapper)
+            row["plain_ms"] = cuda_ms(plain)
+            sets = n_tasks if weights == "per_task" else 1
+            row["bound_ms"], row["bound_by"], row["bound_parts"] = siren_bound_ms(
+                cfg, n_tasks * n, sets)
+            row["bound_f32_ms"], _ = siren_bound_f32_ms(cfg, n_tasks * n, sets)
+            row["sin_per_point"] = cfg.num_layers * cfg.layer_size
         results[name] = row
     emit("kernel", t0, name="siren_fused", tol=KERNEL_TOL, cases=results)
     return results
@@ -199,20 +321,24 @@ def phase_parity():
 def phase_deploy():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        siren_fused.siren_apply_fused.launches = 0
+        siren_fused.siren_apply_fused_batched.launches = 0
         rows = _deploy(tmp, ["--solver.ground_truth_resolution=16", "--task.n_eval=8",
-                             "--inner-steps-list=0,1,2,5"])
+                             "--inner-steps-list=" + ",".join(map(str, DEPLOY_KS)),
+                             f"--repeats={DEPLOY_REPEATS}"])
         torch.cuda.synchronize()
-        launches = siren_fused.siren_apply_fused.launches
-    if launches <= 0:
-        raise AssertionError("the deployment path never launched the siren_fused kernel")
+        launches = siren_fused.siren_apply_fused_batched.launches
+    # one launch per validation call: a warm-up and the timed repeats per k
+    expected = len(DEPLOY_KS) * (1 + DEPLOY_REPEATS)
+    if launches != expected:
+        raise AssertionError(f"the deployment path launched the siren_fused kernel "
+                             f"{launches} times, expected {expected}")
     for r in rows:
         bad = [k for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)]
         if bad:
             raise AssertionError(f"k={r['inner_steps']}: non-finite {bad}")
     med = {r["inner_steps"]: r["val_rel_err_median"] for r in rows}
-    if sorted(med) != [0, 1, 2, 5]:
-        raise AssertionError(f"deploy rows for k={sorted(med)}, expected 0, 1, 2, 5")
+    if sorted(med) != list(DEPLOY_KS):
+        raise AssertionError(f"deploy rows for k={sorted(med)}, expected {DEPLOY_KS}")
     if not med[5] < med[0]:
         raise AssertionError(f"k=5 median rel err {med[5]} not below k=0 {med[0]}")
     if not med[5] <= K5_FACTOR * JAX_CPU_K5_MEDIAN:
@@ -230,7 +356,9 @@ def main():
     kern = phase_kernel()
     phase_parity()
     launches = phase_deploy()
-    main_row, big = kern["main_path"], kern["main_path_2pow20"]
+    main_row, big = kern["main_path_batched"], kern["main_path_2pow20"]
+    timing_keys = ("ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+                   "bound_f32_ms")
     kernels = [{
         "name": "siren_fused",
         "route": "cuda",
@@ -242,9 +370,14 @@ def main():
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
+        "bound_f32_ms": main_row["bound_f32_ms"],
         "library_ms": None,  # no single PyTorch call computes the chain
+        "device_ms": main_row["device_ms"],
+        "wrapper_ms": main_row["wrapper_ms"],
+        "tasks": main_row["tasks"],
         "n": main_row["n"],
-        "at_n_1048576": {k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "sin_per_point": main_row["sin_per_point"],
+        "at_n_1048576": {k: big[k] for k in timing_keys},
     }]
     print(json.dumps({"kernels": kernels, "total_s": time.perf_counter() - T_START}),
           flush=True)

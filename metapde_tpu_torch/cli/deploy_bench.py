@@ -105,7 +105,7 @@ def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
     rows = []
     for k in inner_steps_list:
         val_fn = make_validation_fn(
-            pde, partial(c["make_coef_func"], inner_steps=int(k)), cfg.task.n_eval)
+            pde, partial(c["make_coef_func_batched"], inner_steps=int(k)), cfg.task.n_eval)
         val = val_fn(model, bundle.gt_params, bundle.coords, bundle.gt_vals)
         device_barrier(device)  # warm-up
 

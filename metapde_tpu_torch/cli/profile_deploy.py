@@ -70,7 +70,7 @@ def main(argv=None):
     rows = []
     for k in steps_list:
         val_fn = make_validation_fn(
-            c["pde"], partial(c["make_coef_func"], inner_steps=k), n)
+            c["pde"], partial(c["make_coef_func_batched"], inner_steps=k), n)
         val_fn(*args)  # warm-up
         device_barrier(device)
         with torch.profiler.profile(activities=activities) as prof:

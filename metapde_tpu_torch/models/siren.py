@@ -54,6 +54,8 @@ class FieldDef(NamedTuple):
     cfg: FieldConfig
     apply_vhd: Callable = None  # (params, x[N,d]) -> (u, grad, hess_diag)
     apply_inference: Callable = None  # forward-only fused serving path
+    # (params, x[T,N,d], shared) -> [T,N] / [T,N,o]: all tasks at once
+    apply_inference_batched: Callable = None
 
     def bind(self, params) -> BoundField:
         return BoundField(self, params)
@@ -227,12 +229,10 @@ def field_apply_vhd(params, x, cfg: FieldConfig):
     return u, J.transpose(1, 2), D.transpose(1, 2)
 
 
-def _make_apply_inference(cfg: FieldConfig):
-    """Forward-only evaluation at [N, d] query points, dispatching to the
-    fused SIREN kernel (ops/siren_fused.py) when the config opts in and fits
-    its gate; otherwise field_apply. Not differentiable: training paths use
-    apply/apply_vhd."""
-    fits = (
+def _kernel_fits(cfg: FieldConfig) -> bool:
+    """The gate of the JAX package's dispatcher: the config opts in and the
+    fused SIREN kernel (ops/siren_fused.py) takes it."""
+    return bool(
         cfg.use_pallas_inference
         and cfg.siren
         and cfg.n_fourier is None
@@ -242,19 +242,33 @@ def _make_apply_inference(cfg: FieldConfig):
         and cfg.in_dim <= siren_fused.MAX_WIDTH
     )
 
-    def apply_inference(params, x):
-        if fits and x.ndim == 2:
-            return siren_fused.siren_apply_fused(params, x, cfg)
-        return field_apply(params, x, cfg)
 
-    return apply_inference
+def _make_apply_inference_batched(cfg: FieldConfig):
+    """Forward-only evaluation over a task axis, as the JAX package's vmap of
+    apply_inference: x [T, N, d]; params with a leading task axis T on every
+    leaf, or one set for every task when `shared`. One kernel launch for all
+    tasks when the config fits the gate; otherwise field_apply task by task.
+    Not differentiable: training paths use apply/apply_vhd."""
+    fits = _kernel_fits(cfg)
+
+    def apply_inference_batched(params, x, shared=False):
+        if fits and x.ndim == 3:
+            return siren_fused.siren_apply_fused_batched(params, x, cfg, shared=shared)
+        return torch.stack([
+            field_apply(params if shared else tree_map(lambda p: p[t], params), x[t], cfg)
+            for t in range(x.shape[0])])
+
+    return apply_inference_batched
 
 
 def make_field(cfg: FieldConfig) -> FieldDef:
+    # apply_inference at [N, d] is the T = 1 case of the batched dispatcher
+    batched = _make_apply_inference_batched(cfg)
     return FieldDef(
         init=lambda gen, device="cpu": init_field_params(gen, cfg, device),
         apply=lambda params, x: field_apply(params, x, cfg),
         cfg=cfg,
         apply_vhd=lambda params, x: field_apply_vhd(params, x, cfg),
-        apply_inference=_make_apply_inference(cfg),
+        apply_inference=lambda params, x: batched(params, x[None], shared=True)[0],
+        apply_inference_batched=batched,
     )

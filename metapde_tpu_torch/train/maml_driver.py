@@ -8,6 +8,9 @@ Reference semantics kept:
 - get_final_model: k-step single_task_rollout from the meta-learned init on
   one draw of inner points, with the learned-LR stack truncated to k steps,
   or extended by repeating its last step when k exceeds it.
+- validation evaluates the adapted fields of all eval tasks at once
+  (make_coef_func_batched, the JAX package's vmap of make_coef_func); the
+  adaptation itself stays a per-task loop.
 
 The meta-training step (outer optimizers, train_step, train_step_many) is
 not ported yet, so build() returns the JAX build()'s keys without them.
@@ -94,6 +97,24 @@ def build(cfg: Config, device="cpu"):
         with torch.no_grad():
             return torch.squeeze(field.apply_inference(final_params, coords))
 
+    def make_coef_func_batched(gens, model_and_lrs, task_params, coords,
+                               inner_steps: Optional[int] = None, points=None):
+        """The written-out jax.vmap(make_coef_func, (0, None, 0, 0)): adapt
+        each task in turn (gens[i], task_params[i], and points[i] when given),
+        stack the adapted params, or share the meta-learned init when k = 0,
+        and evaluate every task in one batched inference.
+        coords [T, V, d] -> [T, V] or [T, V, out]."""
+        k = maml_def.inner_steps if inner_steps is None else inner_steps
+        if k == 0:
+            final_params, shared = model_and_lrs[0], True
+        else:
+            finals = [deploy_final_model(gen, model_and_lrs, tp, k,
+                                         None if points is None else points[i])
+                      for i, (gen, tp) in enumerate(zip(gens, task_params))]
+            final_params, shared = tree_map(lambda *p: torch.stack(p), *finals), False
+        with torch.no_grad():
+            return field.apply_inference_batched(final_params, coords, shared=shared)
+
     return dict(
         pde=pde,
         field=field,
@@ -105,5 +126,6 @@ def build(cfg: Config, device="cpu"):
         get_final_model=get_final_model,
         deploy_final_model=deploy_final_model,
         make_coef_func=make_coef_func,
+        make_coef_func_batched=make_coef_func_batched,
         generator=generator,
     )

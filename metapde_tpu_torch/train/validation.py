@@ -9,7 +9,8 @@ Metric semantics kept from the JAX package:
   rel_err_std the (population) std of the per-task means, rel_err_median and
   rel_err_p90 their median and 90th percentile (linear interpolation, as
   jnp.median and jnp.percentile).
-The JAX package vmaps over tasks; here the tasks are a Python loop.
+The JAX package vmaps make_coef_func over the tasks; here the coefficient
+function takes every task at once (maml_driver's make_coef_func_batched).
 """
 
 from typing import Callable, NamedTuple
@@ -59,14 +60,15 @@ def task_generator(i: int) -> torch.Generator:
 def make_validation_fn(pde, make_coef_func: Callable, n_eval: int):
     """Build the validation-error function.
 
-    make_coef_func: (gen, model, task_params, coords) -> [V] or [V, out]
-    values of the adapted model at coords.
+    make_coef_func: (gens, model, task_params, coords) -> [T, V] or
+    [T, V, out] values of the adapted models at coords [T, V, d], for T =
+    n_eval tasks with generators gens[i] and params task_params[i]; called
+    once per validation call.
     """
 
     def validation_error(model, gt_params, coords, gt_vals) -> ValidationResult:
-        coefs = torch.stack([
-            make_coef_func(task_generator(i), model, gt_params[i], coords[i])
-            for i in range(n_eval)])
+        coefs = make_coef_func([task_generator(i) for i in range(n_eval)], model,
+                               gt_params, coords)
         coefs = coefs.reshape(coefs.shape[0], coefs.shape[1], -1)
         gt = gt_vals.reshape(coefs.shape)
         err = coefs - gt

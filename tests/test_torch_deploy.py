@@ -5,7 +5,8 @@ loaders, then deploy it on the same two tasks: same task params, the same
 inner points (the ones JAX's get_final_model draws), the same validation
 coords. Each side adapts the full-width 3x64 SIREN with k = 5 learned-LR
 steps, solves the FEM ground truth at resolution 8 and computes the
-validation metrics.
+validation metrics; the port's validation evaluates both tasks in one
+batched inference, as the JAX package's vmap does.
 
 Tolerance: rtol 1e-3 on the metrics and 1e-4 (relative to each leaf's
 scale) on the adapted params. The two sides sum in other orders (f32), and
@@ -32,9 +33,10 @@ from metapde_tpu.train.validation import make_validation_fn as j_make_validation
 from metapde_tpu_torch.cli import deploy_bench
 from metapde_tpu_torch.config import Config, parse_overrides
 from metapde_tpu_torch.interop import params_from_numpy, params_to_numpy
+from metapde_tpu_torch.ops import siren_fused
 from metapde_tpu_torch.solvers import fem_poisson
 from metapde_tpu_torch.train import checkpoints, maml_driver
-from metapde_tpu_torch.train.validation import make_validation_fn
+from metapde_tpu_torch.train.validation import make_validation_fn, task_generator
 from metapde_tpu_torch.utils.trees import tree_leaves
 
 torch.set_num_threads(1)
@@ -115,17 +117,53 @@ def test_deploy_slice_matches_jax():
     j_val = j_make_validation_fn(
         j_pde, partial(jc["make_coef_func"], inner_steps=K), 2)(
         j_model, jax.tree_util.tree_map(lambda *x: jnp.stack(x), *j_tasks), coords, j_vals)
-    t_pts_iter = iter([tuple(torch.tensor(np.asarray(p)) for p in pts) for pts in inner_pts])
-
-    def t_coef(gen, model, task_params, c):
-        fp = tc["get_final_model"](gen, model, task_params, K, points=next(t_pts_iter))
-        with torch.no_grad():
-            return torch.squeeze(tc["field"].apply_inference(fp, c))
-
+    t_pts = [tuple(torch.tensor(np.asarray(p)) for p in pts) for pts in inner_pts]
+    t_coef = partial(tc["make_coef_func_batched"], inner_steps=K, points=t_pts)
     t_val = make_validation_fn(t_pde, t_coef, 2)(t_model, t_tasks, t_coords, t_vals)
     for name in ("mse", "rel_err", "rel_err_std", "rel_err_median", "rel_err_p90"):
         np.testing.assert_allclose(float(getattr(t_val, name)),
                                    float(getattr(j_val, name)), rtol=1e-3, err_msg=name)
+
+
+def _small_deployment():
+    """The committed checkpoint on two host-drawn tasks, 64 points each."""
+    tc = maml_driver.build(parse_overrides(Config(), OVERRIDES[:2] + [
+        "--task.inner_points=64", "--task.validation_points=64"]), "cpu")
+    state = checkpoints.load_checkpoint(str(CKPT))
+    model = (params_from_numpy(state["params"]), params_from_numpy(state["inner_lrs"]))
+    gen = torch.Generator().manual_seed(3)
+    tasks = [tc["pde"].sample_params(gen) for _ in range(2)]
+    coords = torch.stack([tc["pde"].sample_validation_points(gen, 64, tp) for tp in tasks])
+    return tc, model, tasks, coords
+
+
+@pytest.mark.parametrize("k", [0, 2])
+def test_validation_call_makes_one_batched_inference(k, monkeypatch):
+    """One validation call is one call of the batched kernel wrapper for
+    all tasks: on the shared init at k = 0, on stacked params at k >= 1."""
+    tc, model, tasks, coords = _small_deployment()
+    calls = []
+    orig = siren_fused.siren_apply_fused_batched
+    monkeypatch.setattr(siren_fused, "siren_apply_fused_batched",
+                        lambda p, x, cfg, shared=False:
+                        calls.append((tuple(x.shape), shared)) or orig(p, x, cfg, shared))
+    val_fn = make_validation_fn(
+        tc["pde"], partial(tc["make_coef_func_batched"], inner_steps=k), 2)
+    val = val_fn(model, tasks, coords, torch.ones(2, 64, 1))
+    assert calls == [((2, 64, 2), k == 0)]
+    assert torch.isfinite(val.rel_err)
+
+
+@pytest.mark.parametrize("k", [0, 2])
+def test_batched_coefs_equal_per_task_coefs_bit_for_bit(k):
+    tc, model, tasks, coords = _small_deployment()
+    batched = tc["make_coef_func_batched"](
+        [task_generator(i) for i in range(2)], model, tasks, coords, inner_steps=k)
+    per_task = torch.stack([
+        tc["make_coef_func"](task_generator(i), model, tasks[i], coords[i], inner_steps=k)
+        for i in range(2)])
+    assert batched.shape == (2, 64)
+    assert torch.equal(batched, per_task)
 
 
 def test_deploy_bench_cli_on_cpu(tmp_path):

@@ -109,10 +109,10 @@ def test_fused_reference_matches_pallas_kernel(kw):
 def test_dispatcher_falls_back_for_fourier():
     _, t_field, _, t_params = _pair(dict(n_fourier=3, use_pallas_inference=True))
     x = torch.tensor(_points(64))
-    before = siren_fused.siren_apply_fused.launches
+    before = siren_fused.siren_apply_fused_batched.launches
     u = t_field.apply_inference(t_params, x)
     np.testing.assert_allclose(u.numpy(), t_field.apply(t_params, x).numpy(), atol=1e-6)
-    assert siren_fused.siren_apply_fused.launches == before
+    assert siren_fused.siren_apply_fused_batched.launches == before
 
 
 def test_dispatcher_opt_in():
@@ -122,18 +122,18 @@ def test_dispatcher_opt_in():
     _, t_off, _, p = _pair(dict())
     _, t_on, _, _ = _pair(dict(use_pallas_inference=True))
     calls = []
-    orig = siren_fused.siren_apply_fused
+    orig = siren_fused.siren_apply_fused_batched
     try:
-        siren_fused.siren_apply_fused = lambda *a: calls.append(1) or orig(*a)
+        siren_fused.siren_apply_fused_batched = lambda *a, **k: calls.append(1) or orig(*a, **k)
         u_off = t_off.apply_inference(p, x)
         assert calls == []
         u_on = t_on.apply_inference(p, x)
         assert calls == [1]
     finally:
-        siren_fused.siren_apply_fused = orig
+        siren_fused.siren_apply_fused_batched = orig
     _close(u_on, t_on.apply(p, x))
     _close(u_off, t_off.apply(p, x))
-    assert orig.launches == 0
+    assert siren_fused.siren_apply_fused_batched.launches == 0
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -152,6 +152,122 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         siren_fused.siren_apply_fused(pw, x, wide.cfg)
 
 
+# configs of the batched tests: the four of test_pallas_siren.py and width
+# 128; N = 1000 is ragged against the kernel's 64-point tiles
+BATCHED_CASES = [
+    (dict(), 300),
+    (dict(log_scale=False), 300),
+    (dict(out_dim=2, squeeze_scalar=False), 300),
+    (dict(num_layers=8), 300),
+    (dict(layer_size=128), 1000),
+]
+
+
+def _stacked_pair(kw, n_tasks):
+    """(jax field, torch config, numpy params, torch params) for n_tasks
+    tasks: a JAX init per task, biases and log scales moved by numpy noise so
+    that no two tasks share a leaf, stacked on a leading task axis."""
+    kw = {"num_layers": 3, "layer_size": 64, "in_dim": 2, **kw}
+    j_field = j_make_field(JFieldConfig(**kw))
+    rng = np.random.default_rng(4)
+
+    def one(seed):
+        p = jax.tree_util.tree_map(np.asarray, j_field.init(jax.random.PRNGKey(seed)))
+        for layer in p["layers"]:
+            layer["b"] = layer["b"] + rng.normal(0, 0.1, layer["b"].shape).astype(np.float32)
+        for key in ("log_in_scale", "log_out_scale"):
+            if key in p:
+                p[key] = p[key] + rng.normal(0, 0.1, p[key].shape).astype(np.float32)
+        return p
+
+    stacked = jax.tree_util.tree_map(lambda *a: np.stack(a), *[one(s) for s in range(n_tasks)])
+    return j_field, FieldConfig(**kw), stacked, params_from_numpy(stacked)
+
+
+def _task_points(n_tasks, n, seed=2):
+    return np.random.default_rng(seed).uniform(-1, 1, (n_tasks, n, 2)).astype(np.float32)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_task", "shared"])
+@pytest.mark.parametrize("kw,n", BATCHED_CASES)
+def test_batched_reference_matches_vmapped_pallas_kernel(kw, n, shared):
+    """The batched plain version against the JAX package's Pallas kernel
+    under jax.vmap (in_axes (0, 0) per task, (None, 0) shared)."""
+    j_field, cfg, stacked, t_stacked = _stacked_pair(kw, 3)
+    xs = _task_points(3, n)
+    kernel = lambda p, x: pallas_siren.siren_apply_fused(p, x, j_field.cfg)
+    if shared:
+        u_kernel = jax.vmap(kernel, in_axes=(None, 0))(
+            jax.tree_util.tree_map(lambda a: a[0], stacked), xs)
+        t_params = tree_map(lambda t: t[0], t_stacked)
+    else:
+        u_kernel = jax.vmap(kernel, in_axes=(0, 0))(stacked, xs)
+        t_params = t_stacked
+    u_ref = siren_fused.siren_apply_fused_batched_reference(
+        t_params, torch.tensor(xs), cfg, shared=shared)
+    _close(u_ref, u_kernel)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(out_dim=2, squeeze_scalar=False)])
+def test_batched_reference_equals_per_task_bit_for_bit(kw):
+    _, cfg, _, p = _stacked_pair(kw, 3)
+    x = torch.tensor(_task_points(3, 300))
+    per_task = torch.stack([
+        siren_fused.siren_apply_fused_reference(tree_map(lambda t: t[i], p), x[i], cfg)
+        for i in range(3)])
+    assert torch.equal(siren_fused.siren_apply_fused_batched_reference(p, x, cfg), per_task)
+    one = tree_map(lambda t: t[0], p)
+    shared = torch.stack([siren_fused.siren_apply_fused_reference(one, x[i], cfg)
+                          for i in range(3)])
+    assert torch.equal(
+        siren_fused.siren_apply_fused_batched_reference(one, x, cfg, shared=True), shared)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_task", "shared"])
+@pytest.mark.parametrize("kw,kernel", [
+    (dict(use_pallas_inference=True), True),
+    (dict(), False),
+    (dict(n_fourier=3, use_pallas_inference=True), False),
+])
+def test_batched_dispatcher(kw, kernel, shared, monkeypatch):
+    """apply_inference_batched takes the batched kernel wrapper under the
+    JAX dispatcher's gate, else field_apply task by task; both agree with
+    apply on each task."""
+    _, cfg, _, p = _stacked_pair(kw, 3)
+    field = make_field(cfg)
+    if shared:
+        p = tree_map(lambda t: t[0], p)
+    x = torch.tensor(_task_points(3, 64))
+    calls = []
+    orig = siren_fused.siren_apply_fused_batched
+    monkeypatch.setattr(siren_fused, "siren_apply_fused_batched",
+                        lambda *a, **k: calls.append(k) or orig(*a, **k))
+    u = field.apply_inference_batched(p, x, shared=shared)
+    assert calls == ([{"shared": shared}] if kernel else [])
+    for i in range(3):
+        _close(u[i], field.apply(p if shared else tree_map(lambda t: t[i], p), x[i]))
+    assert orig.launches == 0
+
+
+def test_batched_wrapper_rejects_wrong_batch_shapes_and_dtypes():
+    _, cfg, _, p = _stacked_pair(dict(), 3)
+    x = torch.tensor(_task_points(3, 8))
+    f = siren_fused.siren_apply_fused_batched
+    assert f(p, x, cfg).shape == (3, 8)
+    for bad_x in (x[0], x.double(), x[:2], torch.zeros(3, 8, 3)):
+        with pytest.raises(ValueError):
+            f(p, bad_x, cfg)
+    with pytest.raises(ValueError):  # stacked params called as shared
+        f(p, x, cfg, shared=True)
+    with pytest.raises(ValueError):  # one set of params called as stacked
+        f(tree_map(lambda t: t[0], p), x, cfg)
+    with pytest.raises(ValueError):
+        f(tree_map(lambda t: t.double(), p), x, cfg)
+    with pytest.raises(ValueError):  # neither cpu nor cuda: no silent fallback
+        f(tree_map(lambda t: t.to("meta"), p), x.to("meta"), cfg)
+    assert f.launches == 0
+
+
 def test_init_distribution_bounds():
     cfg = FieldConfig(num_layers=3, layer_size=64)
     p = make_field(cfg).init(torch.Generator().manual_seed(0))
@@ -168,3 +284,21 @@ def test_compute_dtype_is_not_ported():
     _, t_field, _, p = _pair(dict(compute_dtype="bfloat16"))
     with pytest.raises(NotImplementedError):
         t_field.apply(p, torch.tensor(_points(4)))
+
+
+def test_sine_sass_counts_the_fast_path():
+    """cli/sine_sass follows the first conditional branch from the load to
+    the store and leaves out convergence markers, on a listing in
+    cuobjdump's format."""
+    from metapde_tpu_torch.cli import sine_sass
+
+    code = ["LDG.E R11, desc[UR6][R8.64]", "BSSY B0, 0x0070",
+            "FSETP.GT.AND P0, PT, |R11|, 8192, PT", "@!P0 MUFU.SIN R0, R11",
+            "@!P0 BRA 0x0080", "CALL.REL.NOINC 0x00a0", "FMUL R0, R11, 2",
+            "BSYNC B0", "STG.E desc[UR6][R8.64], R0", "EXIT", "FFMA R0, R0, R0, RZ",
+            "NOP"]
+    listing = "\t\tFunction : probe\n" + "".join(
+        f"        /*{16 * i:04x}*/  {ins} ;  /* 0x0 */\n" for i, ins in enumerate(code))
+    found = sine_sass.instructions(listing, "probe")
+    assert [ins for _, ins in found] == code
+    assert sine_sass.fast_path(found) == code[2:5]
