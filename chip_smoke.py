@@ -34,8 +34,28 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               launch: 4 values of k x (1 warm-up + 3 repeats) = 16), every
               value is finite, and the k = 5 median relative error beats
               k = 0 and is within 3x of the JAX package's
-Then a JSON line with every kernel's numbers and the total seconds, and
-last the ok line. A failed check raises: the exit code is then not 0. A
+  5 train_parity  a tiny meta-training (2 layers of 32, bsize 4, 2 inner
+              steps, 128 points, 3 outer steps) on the card and on the CPU
+              on the same host draws, TF32 off: params and inner LRs within
+              1e-4 of each leaf's scale after every step, meta-losses
+              within rtol 1e-3
+  6 train_resume_jax  one full-width outer step (p30k_f32_s1's config:
+              3x64, bsize 16, 5 inner steps, 1024/1024 points, remat on)
+              from the JAX package's checkpoint_step_30001.pickle with its
+              Adam states, on the card and on the CPU, same draws and bars
+  7 train     the training path end to end through cli/maml_pde on a copy
+              of p30k_f32_s1's config.json at its full width, cut to 30
+              outer steps in blocks of 10 (cuts listed in `reduced`), with
+              validation through the kernel every 10 steps; checks finite
+              losses and val_rel_err, the run directory's files, the final
+              checkpoint's JAX-read keys, dtypes and shapes (as in the JAX
+              checkpoint) and no JAX-only key, and one kernel launch per
+              validation call
+  8 train_bench  cli/train_bench on bench.py's flagship config in f32
+              (3 timed blocks of 10 outer steps)
+Then a JSON line with every kernel's numbers (with the training path's
+launches), one with the training numbers and the total seconds, and last
+the ok line. A failed check raises: the exit code is then not 0. A
 watchdog ends a hung run after 480 s with a traceback. Needs a CUDA device;
 imports nothing of JAX or metapde_tpu.
 """
@@ -54,11 +74,13 @@ from pathlib import Path
 import torch
 from torch.autograd import DeviceType
 
-from metapde_tpu_torch.cli import deploy_bench
-from metapde_tpu_torch.config import FieldConfig
+from metapde_tpu_torch.cli import deploy_bench, maml_pde, train_bench
+from metapde_tpu_torch.config import Config, FieldConfig, load_run_config, parse_overrides
+from metapde_tpu_torch.interop import params_from_numpy
 from metapde_tpu_torch.models import make_field
 from metapde_tpu_torch.ops import _build, siren_fused
-from metapde_tpu_torch.utils.trees import tree_map
+from metapde_tpu_torch.train import checkpoints, maml_driver, optimizers
+from metapde_tpu_torch.utils.trees import tree_leaves, tree_map
 
 faulthandler.dump_traceback_later(480, exit=True)
 
@@ -78,6 +100,13 @@ K5_FACTOR = 3.0
 PARITY_RTOL = 1e-2
 DEPLOY_KS = (0, 1, 2, 5)
 DEPLOY_REPEATS = 3
+# card against CPU on the same training draws (TF32 off on the card)
+TRAIN_LEAF_TOL = 1e-4   # of each leaf's scale, params and inner LRs
+TRAIN_LOSS_RTOL = 1e-3  # meta-losses
+JAX_CKPT = RUN_DIR / "checkpoint_step_30001.pickle"
+TRAIN_CUTS = {"train.outer_steps": 30, "train.steps_per_call": 10, "train.val_every": 10,
+              "train.checkpoint_every": 20, "task.n_eval": 2,
+              "solver.ground_truth_resolution": 16}
 # H100 SXM published peaks (dense, at the 700 W limit): TF32 on the tensor
 # cores, f32 outside them, and HBM bandwidth. The SFU returns 16 sines per
 # clock per SM where the CUDA cores do 128 f32 FMAs (2 flops each): the CUDA
@@ -350,12 +379,177 @@ def phase_deploy():
     return launches
 
 
+class _NoTF32:
+    """TF32 off for matmuls and convolutions inside the block, then the
+    flags as they were."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
+        return False
+
+
+def _leaf_err(card_tree, cpu_tree):
+    """The largest |card - cpu| over leaves, each over its leaf's scale."""
+    worst = 0.0
+    for a, b in zip(tree_leaves(card_tree), tree_leaves(cpu_tree)):
+        scale = max(float(b.abs().max()), 1e-3)
+        worst = max(worst, float((a.cpu() - b).abs().max()) / scale)
+    return worst
+
+
+def _train_both(cfg, steps, state):
+    """`steps` outer steps of step_core on the card and on the CPU from the
+    same start `state` (params, LRs, optimizer states, on the CPU), each on
+    one host draw; returns per-step (leaf err, meta-loss rel diff) and the
+    seconds of each side."""
+    cards = maml_driver.build(cfg, "cuda")
+    cpus = maml_driver.build(cfg, "cpu")
+    gen = torch.Generator().manual_seed(cfg.seed + 17)
+    cpu_state = state
+    card_state = tree_map(lambda t: t.to("cuda"), state)
+    rows, t_card, t_cpu = [], 0.0, 0.0
+    for step in range(steps):
+        batch = cpus["draw_step_inputs"](gen)
+        t0 = time.perf_counter()
+        with _NoTF32():
+            out_card = cards["step_core"](tree_map(lambda t: t.to("cuda"), batch), *card_state)
+            torch.cuda.synchronize()
+        t_card += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out_cpu = cpus["step_core"](batch, *cpu_state)
+        t_cpu += time.perf_counter() - t0
+        card_state, cpu_state = out_card[:4], out_cpu[:4]
+        leaf = _leaf_err(card_state[:2], cpu_state[:2])
+        ml_card, ml_cpu = out_card[5][0].cpu(), out_cpu[5][0]
+        loss_rel = float(((ml_card - ml_cpu).abs() / ml_cpu.abs()).max())
+        if not leaf <= TRAIN_LEAF_TOL:
+            raise AssertionError(f"step {step}: params/LRs differ by {leaf} of a leaf's "
+                                 f"scale (> {TRAIN_LEAF_TOL})")
+        if not loss_rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"step {step}: meta-losses differ by rel {loss_rel} "
+                                 f"(> {TRAIN_LOSS_RTOL})")
+        rows.append({"leaf_err": leaf, "meta_loss_rel": loss_rel,
+                     "meta_loss_mean": float(ml_cpu.mean())})
+    return rows, t_card, t_cpu
+
+
+def phase_train_parity():
+    t0 = time.perf_counter()
+    cfg = parse_overrides(Config(), [
+        "--model.num_layers=2", "--model.layer_size=32", "--maml.bsize=4",
+        "--maml.inner_steps=2", "--task.inner_points=128", "--task.outer_points=128"])
+    c = maml_driver.build(cfg, "cpu")
+    state = (c["init_params"], c["inner_lrs"], c["outer_opt"].init(c["init_params"]),
+             c["lr_opt"].init(c["inner_lrs"]))
+    rows, t_card, t_cpu = _train_both(cfg, 3, state)
+    emit("train_parity", t0, leaf_tol=TRAIN_LEAF_TOL, loss_rtol=TRAIN_LOSS_RTOL, steps=rows,
+         card_s=t_card, cpu_s=t_cpu)
+
+
+def phase_train_resume_jax():
+    """One outer step from the JAX package's 30k checkpoint, optimizer
+    states included, on both sides."""
+    t0 = time.perf_counter()
+    cfg = load_run_config(str(RUN_DIR))
+    ck = checkpoints.load_checkpoint(str(JAX_CKPT))
+    state = (params_from_numpy(ck["params"]), params_from_numpy(ck["inner_lrs"]),
+             optimizers.from_jax_state(cfg.train.optimizer, ck["opt_state"]),
+             optimizers.from_jax_state("adam", ck["lr_opt_state"]))
+    rows, t_card, t_cpu = _train_both(cfg, 1, state)
+    emit("train_resume_jax", t0, checkpoint=str(JAX_CKPT.relative_to(REPO)),
+         step=int(ck["step"]), opt_count=int(state[2]["count"]), leaf_tol=TRAIN_LEAF_TOL,
+         loss_rtol=TRAIN_LOSS_RTOL, steps=rows, card_s=t_card, cpu_s=t_cpu)
+
+
+def _check_final_checkpoint(fname):
+    """The JAX-read keys with the JAX checkpoint's types, dtypes and
+    shapes, and none of the keys only the JAX package writes."""
+    ours = checkpoints.load_checkpoint(str(fname))
+    ref = checkpoints.load_checkpoint(str(JAX_CKPT))
+    bad = [k for k in checkpoints.JAX_ONLY_KEYS if k in ours]
+    if bad:
+        raise AssertionError(f"{fname.name} holds JAX-only keys {bad}")
+    if type(ours["step"]) is not type(ref["step"]):
+        raise AssertionError(f"step is {type(ours['step'])}, JAX writes {type(ref['step'])}")
+    for key in ("params", "inner_lrs"):
+        a, b = tree_leaves(ours[key]), tree_leaves(ref[key])
+        if [(x.dtype, x.shape) for x in a] != [(y.dtype, y.shape) for y in b]:
+            raise AssertionError(f"{key}: leaves differ from the JAX checkpoint's")
+    return sorted(ours)
+
+
+def phase_train():
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / RUN_DIR.name
+        src.mkdir()
+        shutil.copy(RUN_DIR / "config.json", src / "config.json")
+        out = Path(tmp) / "out"
+        siren_fused.siren_apply_fused_batched.launches = 0
+        maml_pde.main([f"--from_run={src}", *(f"--{k}={v}" for k, v in TRAIN_CUTS.items()),
+                       "--model.use_pallas_inference=true", f"--train.out_dir={out}",
+                       "--train.expt_name=smoke"])
+        torch.cuda.synchronize()
+        launches = siren_fused.siren_apply_fused_batched.launches
+        run = out / "smoke"
+        for f in ("log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
+                  f"checkpoint_step_{TRAIN_CUTS['train.outer_steps']}.pickle"):
+            if not (run / f).exists():
+                raise AssertionError(f"the training run wrote no {f}")
+        recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+        keys = sorted(recs[0]) if recs else []
+        jax_keys = sorted(json.loads((RUN_DIR / "metrics.jsonl").read_text()
+                                     .splitlines()[0]))
+        if keys != jax_keys:
+            raise AssertionError(f"metrics.jsonl keys {keys} != the JAX run's {jax_keys}")
+        n_val = TRAIN_CUTS["train.outer_steps"] // TRAIN_CUTS["train.val_every"]
+        if len(recs) != n_val:
+            raise AssertionError(f"{len(recs)} validation records, expected {n_val}")
+        for r in recs:
+            for k in ("meta_loss", "val_meta_loss", "val_rel_err", "val_mse"):
+                if not math.isfinite(r[k]):
+                    raise AssertionError(f"step {r['step']}: {k} = {r[k]}")
+        if launches != len(recs):
+            raise AssertionError(f"the training path launched siren_fused {launches} times "
+                                 f"for {len(recs)} validation calls")
+        ckpt_keys = _check_final_checkpoint(
+            run / f"checkpoint_step_{TRAIN_CUTS['train.outer_steps']}.pickle")
+        best = checkpoints.load_checkpoint(str(run / "checkpoint_best.pickle"))
+    step_s = statistics.mean(r["step_time"] for r in recs[1:] or recs)
+    emit("train", t0, reduced=TRAIN_CUTS, launches=launches, validations=len(recs),
+         meta_loss=[r["meta_loss"] for r in recs],
+         val_rel_err=[r["val_rel_err"] for r in recs],
+         val_rel_err_median=[r["val_rel_err_median"] for r in recs],
+         deployment_time=[r["deployment_time"] for r in recs],
+         step_time=[r["step_time"] for r in recs], steps_per_s=1.0 / step_s,
+         best_step=best["step"], checkpoint_keys=ckpt_keys)
+    return {"launches": launches, "steps_per_s": 1.0 / step_s,
+            "deployment_time": recs[-1]["deployment_time"],
+            "val_rel_err": recs[-1]["val_rel_err"]}
+
+
+def phase_train_bench():
+    t0 = time.perf_counter()
+    row = train_bench.main(["--block=10", "--blocks=3"])
+    emit("train_bench", t0, outer_steps_per_s=row["outer_steps_per_s"])
+    return row
+
+
 def main():
     phase_device()
     phase_build()
     kern = phase_kernel()
     phase_parity()
     launches = phase_deploy()
+    phase_train_parity()
+    phase_train_resume_jax()
+    train = phase_train()
+    bench = phase_train_bench()
     main_row, big = kern["main_path_batched"], kern["main_path_2pow20"]
     timing_keys = ("ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
                    "bound_f32_ms")
@@ -365,6 +559,7 @@ def main():
         "source": "metapde_tpu_torch/csrc/siren_fused.cu",
         "replaces": "metapde_tpu/ops/pallas_siren.py:91",
         "launches": launches,
+        "train_launches": train["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -379,8 +574,13 @@ def main():
         "sin_per_point": main_row["sin_per_point"],
         "at_n_1048576": {k: big[k] for k in timing_keys},
     }]
-    print(json.dumps({"kernels": kernels, "total_s": time.perf_counter() - T_START}),
-          flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    bench_keys = ("outer_steps_per_s", "residual_pt_evals_per_s", "draw_s_per_step",
+                  "device_busy_ms_per_step", "device_idle_share", "kernels_per_step",
+                  "max_memory_allocated_bytes", "nvidia_smi", "config")
+    print(json.dumps({"training": {"train": train,
+                                   "train_bench": {k: bench[k] for k in bench_keys}},
+                      "total_s": time.perf_counter() - T_START}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,8 +11,9 @@ per task and the error against the FEM ground truth:
 
 Runs on CUDA unless given --device=cpu. Prints one JSON row per k, with the
 JAX CLI's keys plus the device, and writes them to
-deploy_bench_n<n_eval>[_best].jsonl in the checkpoint dir. The timing
-barrier is torch.cuda.synchronize(). Only --algo=maml is ported; LEAP,
+deploy_bench_torch_n<n_eval>[_best].jsonl in the checkpoint dir, so the JAX
+CLI's rows (deploy_bench_n<n_eval>[_best].jsonl) are never overwritten. The
+timing barrier is torch.cuda.synchronize(). Only --algo=maml is ported; LEAP,
 --energy_audit, deploy.n_starts > 1 and deploy.optimizer raise.
 """
 
@@ -30,14 +31,9 @@ from ..device import pop_device_flag, resolve_device
 from ..interop import params_from_numpy
 from ..train import checkpoints as ckpt
 from ..train import maml_driver
+from ..train.maml_driver import device_barrier
 from ..train.multistart import make_score_fn
 from ..train.validation import get_ground_truth, make_validation_fn, task_generator
-
-
-def device_barrier(device):
-    """Wait for the device's queued work (the timing barrier)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def load_model(cfg: Config, c, which: str, device):
@@ -134,7 +130,7 @@ def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
         rows.append(row)
         print(json.dumps(row), flush=True)
 
-    suffix = f"_n{cfg.task.n_eval}" + ("_best" if resolved_best else "")
+    suffix = f"_torch_n{cfg.task.n_eval}" + ("_best" if resolved_best else "")
     out = os.path.join(cfg.train.load_model_from_expt, f"deploy_bench{suffix}.jsonl")
     with open(out, "w") as f:
         for r in rows:

@@ -1,0 +1,27 @@
+"""MAML meta-training entry point (counterpart of metapde_tpu/cli/maml_pde.py).
+
+    python -m metapde_tpu_torch.cli.maml_pde --task.pde=poisson \
+        --maml.bsize=16 --maml.inner_steps=5 --maml.inner_lr=1e-4 \
+        --maml.outer_lr=1e-5 --task.inner_points=1024 --task.outer_points=1024 \
+        --train.viz_every=0 --train.expt_name=default
+
+The JAX CLI's flags (dotted config paths, config.parse_overrides, including
+--from_run=DIR) plus --device=NAME: CUDA unless given --device=cpu.
+"""
+
+import sys
+
+from ..config import Config, parse_overrides
+from ..device import pop_device_flag
+from ..train import maml_driver
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    device, argv = pop_device_flag(argv)
+    cfg = parse_overrides(Config(), argv)
+    return maml_driver.run(cfg, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -27,7 +27,8 @@ from ..config import Config, parse_overrides
 from ..device import pop_device_flag
 from ..train import maml_driver
 from ..train.validation import make_validation_fn
-from .deploy_bench import device_barrier, eval_tasks, load_model
+from ..train.maml_driver import device_barrier
+from .deploy_bench import eval_tasks, load_model
 
 
 def _busy_us(intervals):

@@ -13,7 +13,8 @@ from .utils.trees import tree_map
 
 
 def params_from_numpy(tree, device="cpu", dtype=torch.float32):
-    """numpy (or array-like) leaves -> tensors of `dtype` on `device`."""
+    """numpy (or array-like) leaves -> tensors of `dtype` on `device`;
+    dtype=None keeps each leaf's own (an optimizer state's int32 count)."""
     return tree_map(
         lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device), tree)
 

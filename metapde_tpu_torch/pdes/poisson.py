@@ -20,6 +20,9 @@ Task distribution semantics kept from the JAX package:
 - ``is_in_hole`` calls atan2(x, y), a quirk kept from the reference; every
   other angle is atan2(y, x).
 
+Training draws one outer step's point sets for every task at once
+(sample_points_batched), with the same distribution per set.
+
 torch's generators give other numbers than JAX's keys, so the samplers are
 held to the JAX package by distribution, and the losses on shared points.
 Draws happen on the generator's device, so a host generator gives the same
@@ -115,6 +118,34 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
         return (sample_points_on_boundary(gen, n, params),
                 sample_points_in_domain(gen, n, params))
 
+    def sample_points_batched(gen, n, params_stacked, sets):
+        """`sets` independent point sets for each of T tasks in a few ops:
+        params_stacked holds each task param with a leading axis T. Returns
+        (boundary [T, sets, n, 2], domain [T, sets, n, 2]), each set drawn as
+        sample_points draws one (the same candidate count and the same
+        inverted replacement flag)."""
+        geo = params_stacked[2].to(gen.device)
+        t, rows = geo.shape[0], geo.shape[0] * sets
+        c1 = geo[:, 0].repeat_interleave(sets)[:, None]
+        c2 = geo[:, 1].repeat_interleave(sets)[:, None]
+        theta = torch.linspace(0.0, 2.0 * math.pi, n, device=gen.device)
+        theta = theta + _uniform(gen, rows * n, 0.0, 2.0 * math.pi / n).reshape(rows, n)
+        r0 = radius(theta, c1, c2)
+        bnd = torch.stack([r0 * torch.cos(theta), r0 * torch.sin(theta)], dim=-1)
+        u = _uniform(gen, rows * 3 * n * 2, 0.0, 1.0).reshape(rows, 3 * n, 2)
+        lo = torch.tensor([dom.xmin, dom.ymin], device=gen.device)
+        hi = torch.tensor([dom.xmax, dom.ymax], device=gen.device)
+        xy = lo + (hi - lo) * u
+        # is_in_hole per row, with the reference's atan2(x, y)
+        length = torch.linalg.norm(xy, dim=-1)
+        inside = ~(radius(torch.atan2(xy[..., 0], xy[..., 1]), c1, c2) < length + 1e-7)
+        idxs = torch.multinomial(inside.to(xy.dtype), n,
+                                 replacement=not cfg.sample_with_replacement, generator=gen)
+        dmn = torch.gather(xy, 1, idxs[..., None].expand(rows, n, 2))
+        out_dev = params_stacked[2].device
+        return (bnd.reshape(t, sets, n, 2).to(out_dev),
+                dmn.reshape(t, sets, n, 2).to(out_dev))
+
     def loss_fn(field_fn, points, params):
         """(boundary_losses, domain_losses) dicts."""
         points_on_boundary, points_in_domain = points
@@ -153,4 +184,5 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
         solve=solve,
         evaluate_gt=fem_poisson.evaluate,
         sample_validation_points=sample_validation_points,
+        sample_points_batched=sample_points_batched,
     )

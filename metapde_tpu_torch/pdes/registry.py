@@ -22,6 +22,8 @@ class PdeDef(NamedTuple):
     solve: Callable    # (params, resolution) -> ground-truth tuple
     evaluate_gt: Callable  # (gt, x [N, in_dim]) -> values [N]
     sample_validation_points: Callable  # (gen, n, params, gt) -> [n, in_dim]
+    # (gen, n, params stacked over T tasks, sets) -> point sets [T, sets, n, ...]
+    sample_points_batched: Callable = None
 
 
 def get_pde(cfg: TaskConfig) -> PdeDef:

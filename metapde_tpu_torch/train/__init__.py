@@ -1,2 +1,2 @@
-"""Deployment-side drivers: checkpoints, ground truth and validation, MAML
-build (counterpart of metapde_tpu/train)."""
+"""Drivers: the MAML build and meta-training loop, optimizers, checkpoints,
+metrics, ground truth and validation (counterpart of metapde_tpu/train)."""

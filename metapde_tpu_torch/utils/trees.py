@@ -20,7 +20,7 @@ def tree_map(fn, tree, *rest):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
         out = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
-        return type(tree)(out)
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
     return fn(tree, *rest)
 
 
@@ -60,3 +60,8 @@ def clip_by_global_norm(tree, max_norm):
                         max_norm / torch.clamp(norm, min=1e-30),
                         torch.ones_like(norm))
     return tree_map(lambda x: x * scale, tree), norm
+
+
+def tree_stack(trees):
+    """List of congruent trees -> one tree with a stacked leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)

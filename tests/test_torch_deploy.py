@@ -15,6 +15,7 @@ Newton-BiCGStab inside its tolerance (gt values differ by up to ~3e-5 at
 res 8, bar 1e-4).
 """
 
+import json
 from functools import partial
 from pathlib import Path
 
@@ -168,7 +169,8 @@ def test_batched_coefs_equal_per_task_coefs_bit_for_bit(k):
 
 def test_deploy_bench_cli_on_cpu(tmp_path):
     """The port's CLI end to end on the CPU, small: rows for every k, finite,
-    written where the JAX CLI writes them, and adaptation lowers the error."""
+    written into the run dir under the port's own name, and adaptation
+    lowers the error."""
     run_dir = tmp_path / "p30k_f32_s1"
     run_dir.mkdir()
     (run_dir / "checkpoint_best.pickle").write_bytes(CKPT.read_bytes())
@@ -180,8 +182,26 @@ def test_deploy_bench_cli_on_cpu(tmp_path):
     assert [r["inner_steps"] for r in rows] == [0, 2]
     assert all(np.isfinite(v) for r in rows for v in r.values() if isinstance(v, float))
     assert rows[1]["val_rel_err_median"] < rows[0]["val_rel_err_median"]
-    assert (run_dir / "deploy_bench_n2_best.jsonl").exists()
+    assert (run_dir / "deploy_bench_torch_n2_best.jsonl").exists()
     assert rows[0]["device"] == "cpu"
+
+
+def test_deploy_bench_leaves_the_jax_rows_alone(tmp_path):
+    """A JAX-named deploy_bench_n2_best.jsonl in the run dir survives a port
+    run byte for byte: the port writes deploy_bench_torch_n2_best.jsonl."""
+    run_dir = tmp_path / "p30k_f32_s1"
+    run_dir.mkdir()
+    (run_dir / "checkpoint_best.pickle").write_bytes(CKPT.read_bytes())
+    jax_rows = b'{"inner_steps": 0, "val_rel_err": 0.5}\n'
+    (run_dir / "deploy_bench_n2_best.jsonl").write_bytes(jax_rows)
+    deploy_bench.main([
+        "--device=cpu", "--algo=maml", f"--train.load_model_from_expt={run_dir}",
+        "--solver.ground_truth_resolution=4", "--task.n_eval=2",
+        "--task.validation_points=64", "--task.inner_points=64",
+        "--inner-steps-list=0", "--checkpoint=best", "--repeats=1"])
+    assert (run_dir / "deploy_bench_n2_best.jsonl").read_bytes() == jax_rows
+    ours = (run_dir / "deploy_bench_torch_n2_best.jsonl").read_text().splitlines()
+    assert [json.loads(l)["inner_steps"] for l in ours] == [0]
 
 
 def test_deploy_bench_raises_for_unported_options(tmp_path):

@@ -1,7 +1,7 @@
-"""The port stands alone: no JAX, no optax, nothing of metapde_tpu; entry
-points refuse a missing CUDA device instead of falling back; chip_smoke.py
-fails without a card and prints no result; no binary or large file in the
-package."""
+"""The port stands alone: no JAX, no optax, nothing of metapde_tpu; its
+own config copy equals the JAX package's; entry points refuse a missing
+CUDA device instead of falling back; chip_smoke.py fails without a card and
+prints no result; no binary or large file in the package."""
 
 import ast
 import os
@@ -12,8 +12,10 @@ from pathlib import Path
 import pytest
 import torch
 
+from metapde_tpu_torch import config as config_mod
 from metapde_tpu_torch import device as device_mod
-from metapde_tpu_torch.cli import deploy_bench
+from metapde_tpu_torch.cli import deploy_bench, maml_pde, train_bench
+from metapde_tpu_torch.train import maml_driver
 
 torch.set_num_threads(1)
 
@@ -94,6 +96,15 @@ def test_entry_point_refuses_missing_cuda(monkeypatch, tmp_path):
         deploy_bench.main([f"--train.load_model_from_expt={tmp_path}"])
     with pytest.raises(RuntimeError, match="cuda"):
         deploy_bench.run(deploy_bench.Config())
+    with pytest.raises(RuntimeError, match="cuda"):
+        maml_pde.main([f"--train.out_dir={tmp_path}", "--train.viz_every=0"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_bench.main(["--block=1", "--blocks=1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        maml_driver.build(config_mod.Config())
+    with pytest.raises(RuntimeError, match="cuda"):
+        maml_driver.run(config_mod.Config(), device="cuda")
+    assert not list(tmp_path.iterdir())  # refused before writing anything
     assert device_mod.resolve_device("cpu") == torch.device("cpu")
     dev, rest = device_mod.pop_device_flag(["--device=cpu", "--task.n_eval=2"])
     assert dev == torch.device("cpu") and rest == ["--task.n_eval=2"]
@@ -126,3 +137,41 @@ def test_no_binary_or_large_file_in_the_package():
         assert len(data) <= 200_000, path
         assert b"\0" not in data, path
         data.decode("utf-8")
+
+
+def _config_tree(cls):
+    """{field: (type annotation, default or nested tree)} of a config class."""
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(cls):
+        default = f.default_factory() if f.default is dataclasses.MISSING else f.default
+        out[f.name] = (str(f.type), _config_tree(type(default))
+                       if dataclasses.is_dataclass(default) else default)
+    return out
+
+
+def test_config_copy_equals_the_jax_package_config():
+    """metapde_tpu_torch/config.py is the port's own copy: the same Config
+    tree field by field (names, types, defaults), the same JSON, and
+    parse_overrides maps the same flags to the same values."""
+    from metapde_tpu import config as j_config
+
+    assert _config_tree(config_mod.Config) == _config_tree(j_config.Config)
+    assert config_mod.Config().to_json() == j_config.Config().to_json()
+    flags = ["--task.pde=poisson", "--task.bc_weight=100", "--task.fixed_num_pdes=4",
+             "--task.sample_with_replacement=true", "--model.num_layers=3",
+             "--model.omega=30", "--model.compute_dtype=none", "--maml.bsize=16",
+             "--maml.outer_lr=1e-5", "--train.optimizer=ranger",
+             "--train.load_model_from_expt=none", "--train.out_dir=x",
+             "--train.remat_inner_steps=false", "--mesh.n_point_shards=2",
+             "--deploy.optimizer=adam", "--solver.newton_tol=1e-9", "--seed=3",
+             "--train.best_metric=rel_err_median", "--task.domain.xmin=-2"]
+    ours = config_mod.parse_overrides(config_mod.Config(), flags)
+    theirs = j_config.parse_overrides(j_config.Config(), flags)
+    assert ours.to_json() == theirs.to_json()
+    run_dir = REPO / "results_poisson_maml" / "p30k_f32_s1"
+    assert (config_mod.parse_overrides(config_mod.Config(), [f"--from_run={run_dir}"]).to_json()
+            == j_config.parse_overrides(j_config.Config(), [f"--from_run={run_dir}"]).to_json())
+    with pytest.raises(KeyError):
+        config_mod.parse_overrides(config_mod.Config(), ["--maml.no_such_flag=1"])

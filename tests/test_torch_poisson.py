@@ -109,6 +109,34 @@ def test_samplers_match_jax_in_distribution(with_replacement):
         assert has_dups == (not with_replacement)
 
 
+@pytest.mark.parametrize("with_replacement", [False, True])
+def test_batched_sampler_matches_jax_in_distribution(with_replacement):
+    """sample_points_batched (the training draws: several sets for several
+    tasks at once) against the JAX sampler, per task, by the same histogram
+    bar: 2 tasks x 20 sets x 256 points per arm and task."""
+    cfg = dict(sample_with_replacement=with_replacement)
+    j_pde, t_pde = j_get_pde(JTaskConfig(**cfg)), get_pde(TaskConfig(**cfg))
+    j_tasks = [j_pde.sample_params(jax.random.PRNGKey(s)) for s in (3, 4)]
+    stacked = tuple(torch.stack([_t(p[i]) for p in j_tasks]) for i in range(3))
+    t_b, t_d = t_pde.sample_points_batched(_gen(11), 256, stacked, 20)
+    assert t_b.shape == t_d.shape == (2, 20, 256, 2)
+    for i, j_params in enumerate(j_tasks):
+        keys = jax.random.split(jax.random.PRNGKey(7 + i), 20)
+        j_b, j_d = jax.vmap(lambda k: j_pde.sample_points(k, 256, j_params))(keys)
+        for j, t in ((j_b, t_b[i]), (j_d, t_d[i])):
+            j, t = np.asarray(j).reshape(-1, 2), t.reshape(-1, 2).numpy()
+            assert np.max(np.abs(_hist2d(j) - _hist2d(t))) < 0.02
+        assert not bool(poisson.is_in_hole(t_d[i].reshape(-1, 2), stacked[2][i]).any())
+        c1, c2 = stacked[2][i]
+        theta = torch.atan2(t_b[i, ..., 1], t_b[i, ..., 0])
+        np.testing.assert_allclose(torch.linalg.norm(t_b[i], dim=-1).numpy(),
+                                   poisson.radius(theta, c1, c2).numpy(), atol=1e-5)
+        # the inverted flag, as the per-task sampler keeps it: each set of 256
+        # from 768 candidates repeats a point only when drawn with replacement
+        dups = [len(np.unique(d, axis=0)) < len(d) for d in t_d[i].numpy()]
+        assert any(dups) == (not with_replacement)
+
+
 @pytest.mark.parametrize("n", [64, 256])
 def test_losses_match_jax_on_shared_points(n):
     j_pde, t_pde = j_get_pde(JTaskConfig()), get_pde(TaskConfig())
