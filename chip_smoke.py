@@ -34,29 +34,50 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               launch: 4 values of k x (1 warm-up + 3 repeats) = 16), every
               value is finite, and the k = 5 median relative error beats
               k = 0 and is within 3x of the JAX package's
-  5 train_parity  a tiny meta-training (2 layers of 32, bsize 4, 2 inner
+  5 ground_truth_mg  two tasks solved at resolution 32 (multigrid
+              preconditioner) on the card and on the CPU: u_grids within
+              1e-4 of the grid's largest |value|; seconds per task, Newton
+              steps, BiCGStab iterations per Newton step, kernel launches
+              per V-cycle, and one solve under torch.profiler (device busy,
+              idle share, launches)
+  6 deploy_mg the same deployment at the checkpoint's own resolution 32
+              (multigrid), ground truth through the cache in
+              gt_cache_torch/: the same launch count and the same bars, the
+              JAX package's CPU median taken at resolution 32; then the same
+              deployment with the bf16 chain (deploy_mg_bf16) from the cached
+              ground truths: no Newton step, 16 launches of the f32 kernel,
+              the same bars, and its k = 0 errors those of the f32 pass
+              within 1e-5
+  7 train_parity  a tiny meta-training (2 layers of 32, bsize 4, 2 inner
               steps, 128 points, 3 outer steps) on the card and on the CPU
               on the same host draws, TF32 off: params and inner LRs within
               1e-4 of each leaf's scale after every step, meta-losses
               within rtol 1e-3
-  6 train_resume_jax  one full-width outer step (p30k_f32_s1's config:
+  8 train_parity_bf16  three outer steps of bench.py's flagship in bf16
+              (3x64, bsize 16, 5 inner steps, 1024/1024 points) on the card
+              and on the CPU on the same host draws: every leaf within 1e-2
+              of its scale, meta-losses within rtol 1e-3
+  9 train_resume_jax  one full-width outer step (p30k_f32_s1's config:
               3x64, bsize 16, 5 inner steps, 1024/1024 points, remat on)
               from the JAX package's checkpoint_step_30001.pickle with its
               Adam states, on the card and on the CPU, same draws and bars
-  7 train     the training path end to end through cli/maml_pde on a copy
+ 10 train     the training path end to end through cli/maml_pde on a copy
               of p30k_f32_s1's config.json at its full width, cut to 30
               outer steps in blocks of 10 (cuts listed in `reduced`), with
-              validation through the kernel every 10 steps; checks finite
-              losses and val_rel_err, the run directory's files, the final
-              checkpoint's JAX-read keys, dtypes and shapes (as in the JAX
-              checkpoint) and no JAX-only key, and one kernel launch per
-              validation call
-  8 train_bench  cli/train_bench on bench.py's flagship config in f32
-              (3 timed blocks of 10 outer steps)
+              validation through the kernel every 10 steps against ground
+              truth at the config's own resolution 32, cached in
+              gt_cache_torch/; checks finite losses and val_rel_err, the run
+              directory's files, the final checkpoint's JAX-read keys, dtypes
+              and shapes (as in the JAX checkpoint) and no JAX-only key, and
+              one kernel launch per validation call; then a run() that
+              resumes from it in the same out_dir must solve nothing
+ 11 train_bench  cli/train_bench on bench.py's flagship config, bf16 as
+              bench.py runs it, then the f32 variant (4 timed blocks of 5
+              outer steps each), with the form of the bf16 products that ran
 Then a JSON line with every kernel's numbers (with the training path's
 launches), one with the training numbers and the total seconds, and last
 the ok line. A failed check raises: the exit code is then not 0. A
-watchdog ends a hung run after 480 s with a traceback. Needs a CUDA device;
+watchdog ends a hung run after 840 s with a traceback. Needs a CUDA device;
 imports nothing of JAX or metapde_tpu.
 """
 
@@ -75,14 +96,18 @@ import torch
 from torch.autograd import DeviceType
 
 from metapde_tpu_torch.cli import deploy_bench, maml_pde, train_bench
+from metapde_tpu_torch.cli.profile_deploy import _busy_us
 from metapde_tpu_torch.config import Config, FieldConfig, load_run_config, parse_overrides
+from metapde_tpu_torch.device import full_f32_matmuls
 from metapde_tpu_torch.interop import params_from_numpy
 from metapde_tpu_torch.models import make_field
 from metapde_tpu_torch.ops import _build, siren_fused
+from metapde_tpu_torch.pdes import get_pde
+from metapde_tpu_torch.solvers import fem_poisson, multigrid, newton
 from metapde_tpu_torch.train import checkpoints, maml_driver, optimizers
 from metapde_tpu_torch.utils.trees import tree_leaves, tree_map
 
-faulthandler.dump_traceback_later(480, exit=True)
+faulthandler.dump_traceback_later(840, exit=True)
 
 REPO = Path(__file__).resolve().parent
 RUN_DIR = REPO / "results_poisson_maml" / "p30k_f32_s1"
@@ -94,6 +119,9 @@ KERNEL_TOL = 1e-5  # the bar of tests/test_pallas_siren.py
 #     --model.use_pallas_inference=true --solver.ground_truth_resolution=16 \
 #     --task.n_eval=8 --inner-steps-list=0,1,2,5 --checkpoint=best
 JAX_CPU_K5_MEDIAN = 0.00021900353021919727
+# the same command at the checkpoint's own resolution (multigrid):
+#   ... --solver.ground_truth_resolution=32 (the rest as above)
+JAX_CPU_K5_MEDIAN_RES32 = 0.00022156770864967257
 K5_FACTOR = 3.0
 # card against CPU on the same deployment: the two FEM solves stop at
 # different iterates inside the Newton tolerance, and sums run in other orders
@@ -105,8 +133,13 @@ TRAIN_LEAF_TOL = 1e-4   # of each leaf's scale, params and inner LRs
 TRAIN_LOSS_RTOL = 1e-3  # meta-losses
 JAX_CKPT = RUN_DIR / "checkpoint_step_30001.pickle"
 TRAIN_CUTS = {"train.outer_steps": 30, "train.steps_per_call": 10, "train.val_every": 10,
-              "train.checkpoint_every": 20, "task.n_eval": 2,
-              "solver.ground_truth_resolution": 16}
+              "train.checkpoint_every": 20, "task.n_eval": 2}
+# bench.py's flagship in bf16, card against CPU: the bf16 rounding of the
+# carried tensors flips single ulps where the two sums differ by 1e-7
+BF16_LEAF_TOL = 1e-2
+# the multigrid ground truth, card against CPU, of the grid's largest |value|
+MG_RES = 32
+MG_TOL = 1e-4
 # H100 SXM published peaks (dense, at the 700 W limit): TF32 on the tensor
 # cores, f32 outside them, and HBM bandwidth. The SFU returns 16 sines per
 # clock per SM where the CUDA cores do 128 f32 FMAs (2 flops each): the CUDA
@@ -347,20 +380,27 @@ def phase_parity():
          cpu={r["inner_steps"]: r["val_rel_err_median"] for r in cpu})
 
 
-def phase_deploy():
+def _deploy_checked(tmp, name, resolution, jax_median, extra=()):
+    """cli/deploy_bench on 8 fresh tasks with ground truth at `resolution`
+    (a run dir and its gt_cache_torch/ under `tmp`), the launches counted
+    from 0 over the run, held to the phase's bars; returns (launches, the
+    median val_rel_err for each k)."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        siren_fused.siren_apply_fused_batched.launches = 0
-        rows = _deploy(tmp, ["--solver.ground_truth_resolution=16", "--task.n_eval=8",
-                             "--inner-steps-list=" + ",".join(map(str, DEPLOY_KS)),
-                             f"--repeats={DEPLOY_REPEATS}"])
-        torch.cuda.synchronize()
-        launches = siren_fused.siren_apply_fused_batched.launches
+    siren_fused.siren_apply_fused_batched.launches = 0
+    rows = _deploy(tmp, [f"--solver.ground_truth_resolution={resolution}",
+                         "--task.n_eval=8",
+                         "--inner-steps-list=" + ",".join(map(str, DEPLOY_KS)),
+                         f"--repeats={DEPLOY_REPEATS}", *extra])
+    torch.cuda.synchronize()
+    launches = siren_fused.siren_apply_fused_batched.launches
+    cached = sorted(p.name for p in (Path(tmp) / "gt_cache_torch").glob("*.npz"))
     # one launch per validation call: a warm-up and the timed repeats per k
     expected = len(DEPLOY_KS) * (1 + DEPLOY_REPEATS)
     if launches != expected:
         raise AssertionError(f"the deployment path launched the siren_fused kernel "
                              f"{launches} times, expected {expected}")
+    if len(cached) != 8:
+        raise AssertionError(f"{len(cached)} ground truths in gt_cache_torch, expected 8")
     for r in rows:
         bad = [k for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)]
         if bad:
@@ -370,27 +410,110 @@ def phase_deploy():
         raise AssertionError(f"deploy rows for k={sorted(med)}, expected {DEPLOY_KS}")
     if not med[5] < med[0]:
         raise AssertionError(f"k=5 median rel err {med[5]} not below k=0 {med[0]}")
-    if not med[5] <= K5_FACTOR * JAX_CPU_K5_MEDIAN:
+    if not med[5] <= K5_FACTOR * jax_median:
         raise AssertionError(f"k=5 median rel err {med[5]} above {K5_FACTOR} x the "
-                             f"JAX CPU median {JAX_CPU_K5_MEDIAN}")
-    emit("deploy", t0, launches=launches, median_rel_err=med,
-         jax_cpu_k5_median=JAX_CPU_K5_MEDIAN,
+                             f"JAX CPU median {jax_median}")
+    emit(name, t0, resolution=resolution, launches=launches, median_rel_err=med,
+         jax_cpu_k5_median=jax_median,
          time_per_task_s={r["inner_steps"]: r["time_per_task_s"] for r in rows})
-    return launches
+    return launches, med
 
 
-class _NoTF32:
-    """TF32 off for matmuls and convolutions inside the block, then the
-    flags as they were."""
+def phase_deploy():
+    """The deployment at resolution 16 (Jacobi-BiCGStab ground truth)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return _deploy_checked(tmp, "deploy", 16, JAX_CPU_K5_MEDIAN)[0]
 
-    def __enter__(self):
-        self.saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
 
-    def __exit__(self, *exc):
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
-        return False
+def phase_deploy_mg():
+    """The deployment at the checkpoint's own resolution 32 (multigrid
+    ground truth), then the same deployment with the bf16 chain
+    (--model.compute_dtype=bfloat16) from the ground truths the first pass
+    cached: it solves nothing, its validation still launches the f32 kernel
+    once per call, and at k = 0 (the meta-learned init, no adaptation) it
+    gives the f32 pass's errors."""
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, med = _deploy_checked(tmp, "deploy_mg", MG_RES, JAX_CPU_K5_MEDIAN_RES32)
+        newton.newton_krylov.steps = 0
+        bf16_launches, bf16_med = _deploy_checked(
+            tmp, "deploy_mg_bf16", MG_RES, JAX_CPU_K5_MEDIAN_RES32,
+            ["--model.compute_dtype=bfloat16"])
+    if newton.newton_krylov.steps:
+        raise AssertionError(f"the bf16 pass ran {newton.newton_krylov.steps} Newton "
+                             "steps: its ground truths were not read from the cache")
+    k0_diff = abs(bf16_med[0] - med[0]) / med[0]
+    if not k0_diff <= KERNEL_TOL:
+        raise AssertionError(f"k=0 under bf16 {bf16_med[0]} vs f32 {med[0]} (rel {k0_diff} "
+                             f"> {KERNEL_TOL}): bf16 validation left the f32 kernel")
+    return launches, bf16_launches
+
+
+def _solve_counted(task, device):
+    """One resolution-32 solve: (ground truth, seconds, Newton steps,
+    BiCGStab iterations)."""
+    task = tuple(a.to(device) for a in task)
+    newton.bicgstab.iterations, newton.newton_krylov.steps = 0, 0
+    maml_driver.device_barrier(torch.device(device))
+    t0 = time.perf_counter()
+    gt = fem_poisson.solve(task, resolution=MG_RES)
+    maml_driver.device_barrier(torch.device(device))
+    return gt, time.perf_counter() - t0, newton.newton_krylov.steps, newton.bicgstab.iterations
+
+
+def phase_ground_truth_mg():
+    """Two eval tasks (host draws, deploy_bench's seed) solved at resolution
+    32 with the multigrid preconditioner on the card and on the CPU."""
+    t0 = time.perf_counter()
+    pde = get_pde(Config().task)
+    gen = torch.Generator().manual_seed(Config().seed + 7919)
+    tasks = [pde.sample_params(gen) for _ in range(2)]
+    rows = []
+    for task in tasks:
+        g, g_s, g_steps, g_iters = _solve_counted(task, "cuda")
+        c, c_s, c_steps, c_iters = _solve_counted(task, "cpu")
+        scale = float(c.u_grid.abs().max())
+        err = float((g.u_grid.cpu() - c.u_grid).abs().max()) / scale
+        rows.append({"card_s": g_s, "cpu_s": c_s, "newton_steps": g_steps,
+                     "krylov_iters": g_iters, "krylov_per_newton": g_iters / max(g_steps, 1),
+                     "cpu_newton_steps": c_steps, "cpu_krylov_iters": c_iters,
+                     "residual_norm": float(g.residual_norm),
+                     "cpu_residual_norm": float(c.residual_norm), "rel_err": err})
+        if not (bool(torch.isfinite(g.u_grid).all()) and err <= MG_TOL):
+            raise AssertionError(f"resolution-{MG_RES} u_grid: card vs CPU {err} of the "
+                                 f"grid's max (> {MG_TOL}), or not finite")
+    # one V-cycle: its kernel launches and its time
+    geo = tasks[0][2].to("cuda")
+    M = multigrid.make_polar_mg_preconditioner(geo, MG_RES, pre_sweeps=3, post_sweeps=3)
+    n_nodes = 1 + 4 * MG_RES * 16 * MG_RES
+    v = torch.randn(n_nodes, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    vcycle_ms = cuda_ms(lambda: M(v))
+    vcycle_prof = _profile(lambda: M(v))
+    newton.bicgstab.iterations = 0
+    solve_prof = _profile(lambda: fem_poisson.solve(tuple(a.to("cuda") for a in tasks[1]),
+                                                    resolution=MG_RES))
+    solve_prof["krylov_iters"] = newton.bicgstab.iterations
+    emit("ground_truth_mg", t0, resolution=MG_RES, tol=MG_TOL, tasks=rows,
+         vcycle_ms=vcycle_ms, vcycle_launches=vcycle_prof["launches"],
+         vcycle_device_ms=vcycle_prof["device_busy_ms"], vcycle_wall_ms=vcycle_prof["wall_ms"],
+         solve_profiled=solve_prof)
+    return {"s_per_task": statistics.mean(r["card_s"] for r in rows),
+            "vcycle_launches": vcycle_prof["launches"]}
+
+
+def _profile(fn):
+    """fn() once under torch.profiler, tracing the card only (a solve makes
+    hundreds of thousands of host ops): wall ms, device-busy ms (the union
+    of the CUDA events), idle share and the count of device launches."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = _busy_us((e.time_range.start, e.time_range.end) for e in events)
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / wall_us, "launches": len(events)}
 
 
 def _leaf_err(card_tree, cpu_tree):
@@ -402,11 +525,12 @@ def _leaf_err(card_tree, cpu_tree):
     return worst
 
 
-def _train_both(cfg, steps, state):
+def _train_both(cfg, steps, state, leaf_tol=TRAIN_LEAF_TOL):
     """`steps` outer steps of step_core on the card and on the CPU from the
     same start `state` (params, LRs, optimizer states, on the CPU), each on
     one host draw; returns per-step (leaf err, meta-loss rel diff) and the
-    seconds of each side."""
+    seconds of each side. Every step is taken before the bars are checked,
+    so a failure reports every step."""
     cards = maml_driver.build(cfg, "cuda")
     cpus = maml_driver.build(cfg, "cpu")
     gen = torch.Generator().manual_seed(cfg.seed + 17)
@@ -416,7 +540,7 @@ def _train_both(cfg, steps, state):
     for step in range(steps):
         batch = cpus["draw_step_inputs"](gen)
         t0 = time.perf_counter()
-        with _NoTF32():
+        with full_f32_matmuls():
             out_card = cards["step_core"](tree_map(lambda t: t.to("cuda"), batch), *card_state)
             torch.cuda.synchronize()
         t_card += time.perf_counter() - t0
@@ -424,17 +548,21 @@ def _train_both(cfg, steps, state):
         out_cpu = cpus["step_core"](batch, *cpu_state)
         t_cpu += time.perf_counter() - t0
         card_state, cpu_state = out_card[:4], out_cpu[:4]
-        leaf = _leaf_err(card_state[:2], cpu_state[:2])
         ml_card, ml_cpu = out_card[5][0].cpu(), out_cpu[5][0]
-        loss_rel = float(((ml_card - ml_cpu).abs() / ml_cpu.abs()).max())
-        if not leaf <= TRAIN_LEAF_TOL:
-            raise AssertionError(f"step {step}: params/LRs differ by {leaf} of a leaf's "
-                                 f"scale (> {TRAIN_LEAF_TOL})")
-        if not loss_rel <= TRAIN_LOSS_RTOL:
-            raise AssertionError(f"step {step}: meta-losses differ by rel {loss_rel} "
-                                 f"(> {TRAIN_LOSS_RTOL})")
-        rows.append({"leaf_err": leaf, "meta_loss_rel": loss_rel,
-                     "meta_loss_mean": float(ml_cpu.mean())})
+        rows.append({
+            "leaf_err": _leaf_err(card_state[:2], cpu_state[:2]),
+            "param_leaf_err": _leaf_err(card_state[0], cpu_state[0]),
+            "lr_leaf_err": _leaf_err(card_state[1], cpu_state[1]),
+            "meta_loss_rel": float(((ml_card - ml_cpu).abs() / ml_cpu.abs()).max()),
+            "grad_norm_rel": abs(float(out_card[6]) - float(out_cpu[6])) / float(out_cpu[6]),
+            "meta_loss_mean": float(ml_cpu.mean())})
+    for step, r in enumerate(rows):
+        if not r["leaf_err"] <= leaf_tol:
+            raise AssertionError(f"step {step}: params/LRs differ by {r['leaf_err']} of a "
+                                 f"leaf's scale (> {leaf_tol}); every step: {rows}")
+        if not r["meta_loss_rel"] <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"step {step}: meta-losses differ by rel {r['meta_loss_rel']} "
+                                 f"(> {TRAIN_LOSS_RTOL}); every step: {rows}")
     return rows, t_card, t_cpu
 
 
@@ -449,6 +577,18 @@ def phase_train_parity():
     rows, t_card, t_cpu = _train_both(cfg, 3, state)
     emit("train_parity", t0, leaf_tol=TRAIN_LEAF_TOL, loss_rtol=TRAIN_LOSS_RTOL, steps=rows,
          card_s=t_card, cpu_s=t_cpu)
+
+
+def phase_train_parity_bf16():
+    """Three outer steps of bench.py's flagship, bf16 as bench.py runs it."""
+    t0 = time.perf_counter()
+    cfg = train_bench.FLAGSHIP
+    c = maml_driver.build(cfg, "cpu")
+    state = (c["init_params"], c["inner_lrs"], c["outer_opt"].init(c["init_params"]),
+             c["lr_opt"].init(c["inner_lrs"]))
+    rows, t_card, t_cpu = _train_both(cfg, 3, state, leaf_tol=BF16_LEAF_TOL)
+    emit("train_parity_bf16", t0, leaf_tol=BF16_LEAF_TOL, loss_rtol=TRAIN_LOSS_RTOL,
+         compute_dtype=cfg.model.compute_dtype, steps=rows, card_s=t_card, cpu_s=t_cpu)
 
 
 def phase_train_resume_jax():
@@ -483,6 +623,14 @@ def _check_final_checkpoint(fname):
     return sorted(ours)
 
 
+def _gt_log(run):
+    """(solved, read) from run()'s ground-truth line in log.txt."""
+    line = next(l for l in (run / "log.txt").read_text().splitlines()
+                if l.startswith("ground truth"))
+    words = line.split(": ", 1)[1].split()
+    return int(words[0]), int(words[2])
+
+
 def phase_train():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -490,10 +638,10 @@ def phase_train():
         src.mkdir()
         shutil.copy(RUN_DIR / "config.json", src / "config.json")
         out = Path(tmp) / "out"
+        args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in TRAIN_CUTS.items()),
+                "--model.use_pallas_inference=true", f"--train.out_dir={out}"]
         siren_fused.siren_apply_fused_batched.launches = 0
-        maml_pde.main([f"--from_run={src}", *(f"--{k}={v}" for k, v in TRAIN_CUTS.items()),
-                       "--model.use_pallas_inference=true", f"--train.out_dir={out}",
-                       "--train.expt_name=smoke"])
+        maml_pde.main(args + ["--train.expt_name=smoke"])
         torch.cuda.synchronize()
         launches = siren_fused.siren_apply_fused_batched.launches
         run = out / "smoke"
@@ -520,8 +668,24 @@ def phase_train():
         ckpt_keys = _check_final_checkpoint(
             run / f"checkpoint_step_{TRAIN_CUTS['train.outer_steps']}.pickle")
         best = checkpoints.load_checkpoint(str(run / "checkpoint_best.pickle"))
+        config = json.loads((run / "config.json").read_text())
+        resolution = config["solver"]["ground_truth_resolution"]
+        first = _gt_log(run)
+        # a run() that resumes from it in the same out_dir: one more step,
+        # every ground truth from gt_cache_torch/
+        t1 = time.perf_counter()
+        maml_pde.main(args + ["--train.expt_name=resumed", f"--train.load_model_from_expt={run}",
+                              f"--train.outer_steps={TRAIN_CUTS['train.outer_steps'] + 1}"])
+        resumed_s = time.perf_counter() - t1
+        resumed = _gt_log(out / "resumed")
+    n_eval = TRAIN_CUTS["task.n_eval"]
+    if resolution != 32 or first != (n_eval, 0) or resumed != (0, n_eval):
+        raise AssertionError(f"ground truth at resolution {resolution}: (solved, read) "
+                             f"{first} then {resumed} on resume")
     step_s = statistics.mean(r["step_time"] for r in recs[1:] or recs)
     emit("train", t0, reduced=TRAIN_CUTS, launches=launches, validations=len(recs),
+         ground_truth_resolution=resolution, gt_solved_read=first,
+         resumed_gt_solved_read=resumed, resumed_s=resumed_s,
          meta_loss=[r["meta_loss"] for r in recs],
          val_rel_err=[r["val_rel_err"] for r in recs],
          val_rel_err_median=[r["val_rel_err_median"] for r in recs],
@@ -530,14 +694,27 @@ def phase_train():
          best_step=best["step"], checkpoint_keys=ckpt_keys)
     return {"launches": launches, "steps_per_s": 1.0 / step_s,
             "deployment_time": recs[-1]["deployment_time"],
-            "val_rel_err": recs[-1]["val_rel_err"]}
+            "val_rel_err": recs[-1]["val_rel_err"], "gt_solved_read": first,
+            "resumed_gt_solved_read": resumed}
+
+
+BENCH_KEYS = ("outer_steps_per_s", "residual_pt_evals_per_s", "draw_s_per_step",
+              "device_busy_ms_per_step", "device_idle_share", "kernels_per_step",
+              "max_memory_allocated_bytes", "bf16_gemm", "nvidia_smi", "config")
 
 
 def phase_train_bench():
+    """bench.py's flagship as bench.py runs it (bf16), then the f32 variant,
+    with what the card's torch offers for bf16 GEMMs (bf16_gemm_support)."""
     t0 = time.perf_counter()
-    row = train_bench.main(["--block=10", "--blocks=3"])
-    emit("train_bench", t0, outer_steps_per_s=row["outer_steps_per_s"])
-    return row
+    # blocks of 5 steps: the profiled block's trace (~10,000 kernels and
+    # ~60,000 host ops a step) takes longer to read than to run
+    depth = ["--block=5", "--blocks=4"]
+    rows = {"bf16": train_bench.main(depth),
+            "f32": train_bench.main(depth + ["--model.compute_dtype=null"])}
+    emit("train_bench", t0, bf16_gemm_support=rows["bf16"]["bf16_gemm_support"],
+         runs={k: {b: r[b] for b in BENCH_KEYS} for k, r in rows.items()})
+    return rows
 
 
 def main():
@@ -545,8 +722,11 @@ def main():
     phase_build()
     kern = phase_kernel()
     phase_parity()
-    launches = phase_deploy()
+    deploy_launches = phase_deploy()
+    gt_mg = phase_ground_truth_mg()
+    deploy_mg_launches, deploy_mg_bf16_launches = phase_deploy_mg()
     phase_train_parity()
+    phase_train_parity_bf16()
     phase_train_resume_jax()
     train = phase_train()
     bench = phase_train_bench()
@@ -558,7 +738,9 @@ def main():
         "route": "cuda",
         "source": "metapde_tpu_torch/csrc/siren_fused.cu",
         "replaces": "metapde_tpu/ops/pallas_siren.py:91",
-        "launches": launches,
+        "launches": deploy_launches,
+        "deploy_mg_launches": deploy_mg_launches,
+        "deploy_mg_bf16_launches": deploy_mg_bf16_launches,
         "train_launches": train["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
         "ms": main_row["ms"],
@@ -575,11 +757,10 @@ def main():
         "at_n_1048576": {k: big[k] for k in timing_keys},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
-    bench_keys = ("outer_steps_per_s", "residual_pt_evals_per_s", "draw_s_per_step",
-                  "device_busy_ms_per_step", "device_idle_share", "kernels_per_step",
-                  "max_memory_allocated_bytes", "nvidia_smi", "config")
     print(json.dumps({"training": {"train": train,
-                                   "train_bench": {k: bench[k] for k in bench_keys}},
+                                   "train_bench": {k: {b: r[b] for b in BENCH_KEYS}
+                                                   for k, r in bench.items()}},
+                      "ground_truth_mg": gt_mg,
                       "total_s": time.perf_counter() - T_START}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

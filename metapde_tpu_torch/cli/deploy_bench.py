@@ -7,13 +7,19 @@ per task and the error against the FEM ground truth:
 
     python -m metapde_tpu_torch.cli.deploy_bench --algo=maml \
         --train.load_model_from_expt=results_poisson_maml/p30k_f32_s1 \
+        --solver.ground_truth_resolution=32 --model.use_pallas_inference=true \
         --inner-steps-list=0,1,2,5 --task.n_eval=8 --checkpoint=best
 
-Runs on CUDA unless given --device=cpu. Prints one JSON row per k, with the
-JAX CLI's keys plus the device, and writes them to
-deploy_bench_torch_n<n_eval>[_best].jsonl in the checkpoint dir, so the JAX
-CLI's rows (deploy_bench_n<n_eval>[_best].jsonl) are never overwritten. The
-timing barrier is torch.cuda.synchronize(). Only --algo=maml is ported; LEAP,
+(resolution 32 is the one that run trained with; from 32 up the FEM solve
+takes the multigrid preconditioner). Runs on CUDA unless given
+--device=cpu. Prints one JSON row per k, with the JAX CLI's keys plus the
+device, and writes them to
+deploy_bench_torch[_<compute_dtype>]_n<n_eval>[_best].jsonl in the
+checkpoint dir, so the JAX CLI's rows
+(deploy_bench[_<compute_dtype>]_n<n_eval>[_best].jsonl) are never
+overwritten. The ground truths are cached in gt_cache_torch/ beside the
+checkpoint dir, where the JAX CLI's cache is gt_cache/. The timing barrier
+is torch.cuda.synchronize(). Only --algo=maml is ported; LEAP,
 --energy_audit, deploy.n_starts > 1 and deploy.optimizer raise.
 """
 
@@ -31,6 +37,7 @@ from ..device import pop_device_flag, resolve_device
 from ..interop import params_from_numpy
 from ..train import checkpoints as ckpt
 from ..train import maml_driver
+from ..train.gt_cache import task_cache_extra
 from ..train.maml_driver import device_barrier
 from ..train.multistart import make_score_fn
 from ..train.validation import get_ground_truth, make_validation_fn, task_generator
@@ -61,13 +68,22 @@ def load_model(cfg: Config, c, which: str, device):
 
 
 def eval_tasks(cfg: Config, pde, device):
-    """The n_eval unseen tasks, their validation coords and ground truth.
-    Drawn on the host, so a CPU and a GPU run deploy on the same tasks."""
+    """The n_eval unseen tasks, their validation coords and ground truth at
+    cfg.solver.ground_truth_resolution. Drawn on the host, so a CPU and a GPU
+    run deploy on the same tasks. The ground truths are cached next to the
+    run, in <dirname(expt)>/gt_cache_torch (the JAX CLI's cache there is
+    gt_cache/, which this never touches)."""
     gen = torch.Generator().manual_seed(cfg.seed + 7919)
     gt_params = [tuple(a.to(device) for a in pde.sample_params(gen))
                  for _ in range(cfg.task.n_eval)]
-    return get_ground_truth(pde, gt_params, gen, cfg.task.validation_points,
-                            cfg.solver.ground_truth_resolution)
+    expt = cfg.train.load_model_from_expt
+    cache_dir = os.path.join(os.path.dirname(expt.rstrip("/")) or ".", "gt_cache_torch")
+    bundle = get_ground_truth(pde, gt_params, gen, cfg.task.validation_points,
+                              cfg.solver.ground_truth_resolution, cache_dir=cache_dir,
+                              cache_extra=task_cache_extra(cfg.task))
+    print(f"ground truth at resolution {cfg.solver.ground_truth_resolution}: "
+          f"{bundle.solves} solved, {bundle.cache_hits} read from {cache_dir}", flush=True)
+    return bundle
 
 
 def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
@@ -130,7 +146,9 @@ def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
         rows.append(row)
         print(json.dumps(row), flush=True)
 
-    suffix = f"_torch_n{cfg.task.n_eval}" + ("_best" if resolved_best else "")
+    # as the JAX CLI's suffix: a mixed-precision bench gets its own file
+    suffix = "_torch" + (f"_{cfg.model.compute_dtype}" if cfg.model.compute_dtype else "")
+    suffix += f"_n{cfg.task.n_eval}" + ("_best" if resolved_best else "")
     out = os.path.join(cfg.train.load_model_from_expt, f"deploy_bench{suffix}.jsonl")
     with open(out, "w") as f:
         for r in rows:

@@ -3,10 +3,11 @@
     python -m metapde_tpu_torch.cli.train_bench [--block=10] [--blocks=3] \
         [--device=cpu] [--a.b.c=value ...]
 
-The configuration is bench.py's flagship (3x64 SIREN, omega 30, bsize 16,
-5 inner steps, 1024 inner and 1024 outer points, sample_with_replacement,
-remat off, bc_weight 1) in f32: compute_dtype=None, since the bf16 path is
-not ported. Dotted overrides apply on top (the tests shrink it).
+The configuration is bench.py's flagship, as bench.py sets it: 3x64 SIREN,
+omega 30, compute_dtype="bfloat16", bsize 16, 5 inner steps, 1024 inner and
+1024 outer points, sample_with_replacement, remat off, bc_weight 1. Dotted
+overrides apply on top: --model.compute_dtype=null times the f32 chain, and
+the tests shrink it.
 
 After one warm-up block, `--blocks` blocks of `--block` outer steps run
 timed; a host read of each block's losses and torch.cuda.synchronize() are
@@ -22,13 +23,17 @@ line:
   time (null on the CPU), and the host ops with the most self time (on
   either device: PyTorch's dispatch, autograd and vmap work per op);
 - max_memory_allocated_bytes (torch.cuda.max_memory_allocated; null on the
-  CPU), and the card's name and power limit from nvidia-smi.
+  CPU), and the card's name and power limit from nvidia-smi;
+- under a compute dtype, the form of its products (bf16_gemm: "upcast",
+  models/siren.py _mixed_dots) and what bf16_gemm_support finds of
+  torch's bf16 GEMM with an f32 output on this device.
 """
 
 import json
 import subprocess
 import sys
 import time
+import warnings
 from collections import defaultdict
 
 import torch
@@ -44,11 +49,52 @@ FLAGSHIP = Config(
                     validation_points=1024, n_eval=8, bc_weight=1.0,
                     sample_with_replacement=True),
     model=FieldConfig(num_layers=3, layer_size=64, omega=30.0, omega0=30.0,
-                      compute_dtype=None),
+                      compute_dtype="bfloat16"),
     maml=MamlConfig(bsize=16, inner_steps=5, inner_lr=1e-4, outer_lr=1e-5,
                     inner_grad_clip=100.0, grad_clip=100.0, unroll=5),
     train=TrainConfig(remat_inner_steps=False),
 )
+
+
+def bf16_gemm_support(device) -> dict:
+    """Probe torch.mm(a, w, out_dtype=torch.float32) on bf16 operands on
+    `device`: whether it has a kernel there (`kernel`), a torch.func.vmap
+    batching rule, i.e. vmap runs it without the per-example fallback
+    (`vmap`), and a double backward (`double_backward`). The meta-gradient
+    would need all three for the mixed chain to use bf16 GEMMs
+    (models/siren.py _mixed_dots). Each value is True or the reason it is
+    not."""
+    dev = torch.device(device)
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(2, 8, 4, generator=gen).to(dev)
+    w = torch.randn(2, 4, 3, generator=gen).to(dev)
+
+    def mm(a, w):
+        return torch.mm(a.to(torch.bfloat16), w.to(torch.bfloat16), out_dtype=torch.float32)
+
+    def attempt(fn):
+        try:
+            return fn()
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            return f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+    def vmapped():
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.func.vmap(mm)(a, w)
+        slow = [str(m.message) for m in seen if "batching rule" in str(m.message)]
+        return slow[0][:200] if slow else True
+
+    def double_backward():
+        ag, wg = a[0].clone().requires_grad_(), w[0].clone().requires_grad_()
+        g = torch.autograd.grad((mm(ag, wg) ** 2).sum(), (ag, wg), create_graph=True)
+        torch.autograd.grad(sum(t.sum() for t in g), (ag, wg))
+        return True
+
+    out = {"kernel": attempt(lambda: mm(a[0], w[0]) is not None)}
+    if out["kernel"] is not True:
+        return {**out, "vmap": "no kernel", "double_backward": "no kernel"}
+    return {**out, "vmap": attempt(vmapped), "double_backward": attempt(double_backward)}
 
 
 def nvidia_smi():
@@ -142,6 +188,9 @@ def run(cfg: Config, device, block: int = 10, blocks: int = 3):
         "host_ops_per_step": sum(e.count for e in ops) / block,
         "max_memory_allocated_bytes": (torch.cuda.max_memory_allocated(device)
                                        if on_card else None),
+        "bf16_gemm": "upcast" if cfg.model.compute_dtype else None,
+        "bf16_gemm_support": (bf16_gemm_support(device)
+                              if cfg.model.compute_dtype else None),
         "final_meta_loss": float(ml[-1]),
     }
     print(json.dumps(row), flush=True)

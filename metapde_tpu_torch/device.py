@@ -5,6 +5,8 @@ request on a machine without a usable CUDA device raises: nothing falls
 back to the CPU quietly.
 """
 
+import contextlib
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -31,3 +33,17 @@ def pop_device_flag(argv):
         else:
             rest.append(a)
     return resolve_device(name), rest
+
+
+@contextlib.contextmanager
+def full_f32_matmuls():
+    """TF32 off for matmuls and cuDNN inside the block, then the flags as
+    they were: f32 products keep f32 sums, as the JAX package's highest
+    matmul precision and preferred_element_type=f32 keep them."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

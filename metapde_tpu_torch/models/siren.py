@@ -14,16 +14,22 @@ Semantics kept from the JAX package:
 - Scalar fields (out_dim=1, squeeze_scalar) sum the last axis, giving [N].
 - Optional octave Fourier features before the first layer.
 
-Only f32 compute is ported: a set ``compute_dtype`` (the JAX package's bf16
-``_mixed_dots`` path) raises NotImplementedError.
+A set ``compute_dtype`` (the flagship's "bfloat16") is the JAX package's
+``_mixed_dots`` chain: matmul operands rounded to bf16, products accumulated
+and returned in f32, the h / J / D tensors carried between layers stored in
+bf16, activation math and the Fourier block in f32. Forward-only inference
+through the fused kernel stays f32 whatever ``compute_dtype`` is, as the
+JAX package's Pallas kernel does.
 """
 
+import contextlib
 import math
 from typing import Callable, NamedTuple
 
 import torch
 
 from ..config import FieldConfig
+from ..device import full_f32_matmuls
 from ..ops import siren_fused
 from ..ops.fourier import fourier_feature_dim, fourier_features
 from ..utils.trees import tree_map
@@ -34,13 +40,15 @@ class BoundField:
     contract, also exposing the one-pass (value, grad, Hessian-diag) path as
     `.vhd`; PDE losses check for the attribute and take that route."""
 
-    __slots__ = ("params", "_apply", "vhd")
+    __slots__ = ("params", "_apply", "vhd", "vjac")
 
     def __init__(self, field_def, params):
         self.params = params
         self._apply = field_def.apply
         if field_def.apply_vhd is not None:
             self.vhd = lambda x: field_def.apply_vhd(params, x)
+        if field_def.apply_vjac is not None:
+            self.vjac = lambda x: field_def.apply_vjac(params, x)
 
     def __call__(self, x):
         return self._apply(self.params, x)
@@ -53,6 +61,7 @@ class FieldDef(NamedTuple):
     apply: Callable  # (params, x) -> field values
     cfg: FieldConfig
     apply_vhd: Callable = None  # (params, x[N,d]) -> (u, grad, hess_diag)
+    apply_vjac: Callable = None  # (params, x[N,d]) -> (u, jacobian)
     apply_inference: Callable = None  # forward-only fused serving path
     # (params, x[T,N,d], shared) -> [T,N] / [T,N,o]: all tasks at once
     apply_inference_batched: Callable = None
@@ -61,11 +70,37 @@ class FieldDef(NamedTuple):
         return BoundField(self, params)
 
 
-def _check_compute_dtype(cfg: FieldConfig):
-    if cfg.compute_dtype:
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: only f32 compute "
-            "(compute_dtype=None) is ported")
+def mixed_precision_scope(cfg: FieldConfig):
+    """Inside a mixed-precision chain, TF32 off: the products are f32 GEMMs
+    of bf16-rounded operands, whose sums must stay f32 as the JAX package's
+    preferred_element_type keeps them. The field's passes enter it; so do the
+    callers that differentiate them (the meta-gradient, deployment's
+    adaptation), so that the backward products keep f32 sums too. An f32
+    field leaves the flags as the caller set them."""
+    return full_f32_matmuls() if cfg.compute_dtype else contextlib.nullcontext()
+
+
+def _mixed_dots(cfg: FieldConfig, x):
+    """(dot, store) implementing cfg.compute_dtype, as the JAX package's
+    _mixed_dots: dot(a, w) multiplies the operands rounded to the compute
+    dtype and returns the f32 (x.dtype) sums; store(t) casts a tensor carried
+    to the next layer down to the compute dtype. Without a compute dtype,
+    plain f32 products and no casts.
+
+    The products are the "upcast" form: the rounded operands cast back to
+    f32 and multiplied as an f32 GEMM. bf16 x bf16 products are exact in
+    f32, so this equals a bf16 GEMM that accumulates and returns f32. That
+    GEMM itself, torch.mm(..., out_dtype=torch.float32), has no vmap
+    batching rule and no derivative in the torch releases the port runs on
+    (cli/train_bench reports it), and the meta-gradient needs both."""
+    if not cfg.compute_dtype:
+        return (lambda a, w: a @ w), (lambda t: t)
+    cd, acc = getattr(torch, cfg.compute_dtype), x.dtype
+
+    def dot(a, w):
+        return a.to(cd).to(acc) @ w.to(cd).to(acc)
+
+    return dot, (lambda t: t.to(cd))
 
 
 def _uniform(gen, shape, lo, hi):
@@ -121,9 +156,14 @@ def field_apply(params, x, cfg: FieldConfig):
     Returns [...] for scalar fields (out_dim=1, squeeze_scalar) else
     [..., out_dim].
     """
-    _check_compute_dtype(cfg)
+    with mixed_precision_scope(cfg):
+        return _field_apply(params, x, cfg)
+
+
+def _field_apply(params, x, cfg: FieldConfig):
     batch_shape = x.shape[:-1]
     h = x.reshape(-1, x.shape[-1])
+    dot, store = _mixed_dots(cfg, x)
 
     if cfg.log_scale:
         h = h * torch.exp(params["log_in_scale"]).reshape(1, -1)
@@ -132,10 +172,10 @@ def field_apply(params, x, cfg: FieldConfig):
 
     layers = params["layers"]
     for layer in layers[:-1]:
-        a = h @ layer["w"] + layer["b"]
-        h = torch.sin(cfg.omega * a) if cfg.siren else torch.nn.functional.silu(a)
+        a = dot(h, layer["w"]) + layer["b"]
+        h = store(torch.sin(cfg.omega * a) if cfg.siren else torch.nn.functional.silu(a))
     out_layer = layers[-1]
-    out = h @ out_layer["w"] + out_layer["b"]
+    out = dot(h, out_layer["w"]) + out_layer["b"]
 
     if cfg.log_scale:
         out = out * torch.exp(params["log_out_scale"]).reshape(1, -1)
@@ -162,9 +202,14 @@ def field_apply_vhd(params, x, cfg: FieldConfig):
       scalar fields (out_dim=1, squeeze_scalar): u [N], g [N,d], hd [N,d]
       vector fields: u [N,o], g [N,o,d], hd [N,o,d]  with hd_i = d2u/dx_i^2.
     """
-    _check_compute_dtype(cfg)
+    with mixed_precision_scope(cfg):
+        return _field_apply_vhd(params, x, cfg)
+
+
+def _field_apply_vhd(params, x, cfg: FieldConfig):
     n, d = x.shape
     h = x
+    dot, store = _mixed_dots(cfg, x)
     # J [N, d, F]: J[n, i, f] = d h_f / d x_i ;  D likewise second derivative
     J = torch.eye(d, dtype=x.dtype, device=x.device)[None].expand(n, d, d)
     D = torch.zeros_like(J)
@@ -196,9 +241,9 @@ def field_apply_vhd(params, x, cfg: FieldConfig):
     layers = params["layers"]
     for layer in layers[:-1]:
         w, b = layer["w"], layer["b"]
-        a = h @ w + b
-        Ja = J @ w
-        Da = D @ w
+        a = dot(h, w) + b
+        Ja = dot(J, w)
+        Da = dot(D, w)
         if cfg.siren:
             sa = torch.sin(om * a)
             ca = torch.cos(om * a)
@@ -212,11 +257,12 @@ def field_apply_vhd(params, x, cfg: FieldConfig):
             h = a * sig
             J = d1[:, None, :] * Ja
             D = d2[:, None, :] * Ja ** 2 + d1[:, None, :] * Da
+        h, J, D = store(h), store(J), store(D)
 
     w, b = layers[-1]["w"], layers[-1]["b"]
-    u = h @ w + b      # [N, o]
-    J = J @ w          # [N, d, o]
-    D = D @ w
+    u = dot(h, w) + b  # [N, o]
+    J = dot(J, w)      # [N, d, o]
+    D = dot(D, w)
 
     if cfg.log_scale:
         so = torch.exp(params["log_out_scale"]).reshape(1, 1, -1)
@@ -229,14 +275,77 @@ def field_apply_vhd(params, x, cfg: FieldConfig):
     return u, J.transpose(1, 2), D.transpose(1, 2)
 
 
+def field_apply_vjac(params, x, cfg: FieldConfig):
+    """One forward pass computing (value, Jacobian): the first-order slice of
+    field_apply_vhd, for losses that need only grad u.
+
+    Args: x [N, in_dim]. Returns (u, g):
+      scalar fields: u [N], g [N,d]; vector fields: u [N,o], g [N,o,d].
+    """
+    with mixed_precision_scope(cfg):
+        return _field_apply_vjac(params, x, cfg)
+
+
+def _field_apply_vjac(params, x, cfg: FieldConfig):
+    n, d = x.shape
+    h = x
+    dot, store = _mixed_dots(cfg, x)
+    J = torch.eye(d, dtype=x.dtype, device=x.device)[None].expand(n, d, d)
+
+    if cfg.log_scale:
+        s = torch.exp(params["log_in_scale"]).reshape(1, -1)
+        h = h * s
+        J = J * s[:, None, :]
+
+    if cfg.n_fourier is not None:
+        nf = cfg.n_fourier
+        scale = (2.0 ** torch.arange(nf, dtype=x.dtype, device=x.device)).reshape(1, 1, -1)
+        he = h[:, :, None]
+        val = torch.cat(
+            [he, torch.sin(scale * he) / scale, torch.cos(scale * he) / scale], dim=-1)
+        dphi = torch.cat(
+            [torch.ones_like(he), torch.cos(scale * he), -torch.sin(scale * he)], dim=-1)
+        J = (dphi[:, None] * J[:, :, :, None]).reshape(n, d, -1)
+        h = val.reshape(n, -1)
+
+    om = cfg.omega
+    layers = params["layers"]
+    for layer in layers[:-1]:
+        w, b = layer["w"], layer["b"]
+        a = dot(h, w) + b
+        Ja = dot(J, w)
+        if cfg.siren:
+            h = torch.sin(om * a)
+            J = om * torch.cos(om * a)[:, None, :] * Ja
+        else:
+            sig = torch.sigmoid(a)
+            h = a * sig
+            J = (sig * (1.0 + a * (1.0 - sig)))[:, None, :] * Ja
+        h, J = store(h), store(J)
+
+    w, b = layers[-1]["w"], layers[-1]["b"]
+    u = dot(h, w) + b
+    J = dot(J, w)
+
+    if cfg.log_scale:
+        so = torch.exp(params["log_out_scale"]).reshape(1, 1, -1)
+        u = u * so[0]
+        J = J * so
+
+    if cfg.out_dim == 1 and cfg.squeeze_scalar:
+        return u.sum(-1), J.sum(-1)
+    return u, J.transpose(1, 2)
+
+
 def _kernel_fits(cfg: FieldConfig) -> bool:
     """The gate of the JAX package's dispatcher: the config opts in and the
-    fused SIREN kernel (ops/siren_fused.py) takes it."""
+    fused SIREN kernel (ops/siren_fused.py) takes it. compute_dtype plays no
+    part: the kernel computes in the dtype of its f32 inputs, as the JAX
+    package's Pallas kernel does under a bf16 config."""
     return bool(
         cfg.use_pallas_inference
         and cfg.siren
         and cfg.n_fourier is None
-        and cfg.compute_dtype is None
         and cfg.layer_size <= siren_fused.MAX_WIDTH
         and cfg.out_dim <= siren_fused.MAX_WIDTH
         and cfg.in_dim <= siren_fused.MAX_WIDTH
@@ -269,6 +378,7 @@ def make_field(cfg: FieldConfig) -> FieldDef:
         apply=lambda params, x: field_apply(params, x, cfg),
         cfg=cfg,
         apply_vhd=lambda params, x: field_apply_vhd(params, x, cfg),
+        apply_vjac=lambda params, x: field_apply_vjac(params, x, cfg),
         apply_inference=lambda params, x: batched(params, x[None], shared=True)[0],
         apply_inference_batched=batched,
     )

@@ -34,6 +34,7 @@ import math
 import torch
 
 from ..config import TaskConfig
+from ..ops.operators import vmap_weighted_laplacian
 from ..solvers import fem_poisson
 from .registry import PdeDef
 
@@ -155,19 +156,27 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
         err_on_boundary = bc_vals - field_fn(points_on_boundary)
         loss_on_boundary = torch.mean(err_on_boundary ** 2)
 
-        if not hasattr(field_fn, "vhd"):
-            raise NotImplementedError(
-                "the autodiff weighted-Laplacian branch needs ops/operators.py, "
-                "which is not ported yet; pass a field with .vhd")
-        # div((1+0.1u^2) grad u) = (1+0.1u^2) lap(u) + 0.2 u |grad u|^2
-        u, g, hd = field_fn.vhd(points_in_domain)
-        lap = (1.0 + 0.1 * u ** 2) * hd.sum(-1) + 0.2 * u * (g ** 2).sum(-1)
+        if hasattr(field_fn, "vhd"):
+            # one Taylor-mode pass (models/siren.py field_apply_vhd):
+            # div((1+0.1u^2) grad u) = (1+0.1u^2) lap(u) + 0.2 u |grad u|^2
+            u, g, hd = field_fn.vhd(points_in_domain)
+            lap = (1.0 + 0.1 * u ** 2) * hd.sum(-1) + 0.2 * u * (g ** 2).sum(-1)
+        else:
+            lap = vmap_weighted_laplacian(
+                points_in_domain, field_fn, lambda x: 1.0 + 0.1 * field_fn(x) ** 2)
         src = source(source_params, points_in_domain)
         loss_in_domain = torch.mean((lap - src) ** 2)
         return {"boundary_loss": loss_on_boundary}, {"domain_loss": loss_in_domain}
 
     def solve(params, resolution=None):
+        # precond "auto": multigrid from resolution 32 up, Jacobi below
         return fem_poisson.solve(params, resolution=resolution or 16)
+
+    def solve_ref(params, resolution=None):
+        return fem_poisson.solve_x64(params, resolution=resolution or 64)
+
+    def solve_hi(params, resolution=None):
+        return fem_poisson.solve_richardson(params, resolution=resolution or 16)
 
     def sample_validation_points(gen, n, params, gt=None):
         return sample_points_in_domain(gen, n, params)
@@ -185,4 +194,7 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
         evaluate_gt=fem_poisson.evaluate,
         sample_validation_points=sample_validation_points,
         sample_points_batched=sample_points_batched,
+        solve_ref=solve_ref,
+        solve_hi=solve_hi,
+        evaluate_gt_hi=fem_poisson.evaluate_cubic,
     )

@@ -24,6 +24,10 @@ class PdeDef(NamedTuple):
     sample_validation_points: Callable  # (gen, n, params, gt) -> [n, in_dim]
     # (gen, n, params stacked over T tasks, sets) -> point sets [T, sets, n, ...]
     sample_points_batched: Callable = None
+    gt_version: int = 1  # bump when the ground-truth scheme changes (cache key)
+    solve_ref: Callable = None  # (params, resolution) -> float64 reference solve
+    solve_hi: Callable = None   # (params, resolution) -> higher-order oracle
+    evaluate_gt_hi: Callable = None  # evaluation matching solve_hi's order
 
 
 def get_pde(cfg: TaskConfig) -> PdeDef:

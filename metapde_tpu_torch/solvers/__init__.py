@@ -1,5 +1,6 @@
 """Ground-truth solvers in PyTorch (counterpart of metapde_tpu/solvers).
 
 Ported so far: fem_poisson (P1 FEM, matrix-free Newton-BiCGStab with the
-Jacobi preconditioner) and newton.
+Jacobi or the multigrid preconditioner, the float64 and Richardson
+oracles), multigrid (the polar V-cycle) and newton.
 """

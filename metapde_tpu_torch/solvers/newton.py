@@ -4,6 +4,8 @@ J v comes from torch.func.jvp of the residual; the Jacobian is never built.
 BiCGStab is written out by hand with the semantics of
 jax.scipy.sparse.linalg.bicgstab. Both loops run eagerly and read one scalar
 back to the host per iteration for their stopping test, and no more.
+``bicgstab.iterations`` and ``newton_krylov.steps`` count the iterations
+each has run, as plain integers a caller may reset and read.
 """
 
 from typing import Callable, NamedTuple
@@ -38,6 +40,7 @@ def bicgstab(A: Callable, b: torch.Tensor, *, tol: float = 1e-5,
     for _ in range(maxiter):
         if not bool(((torch.dot(r, r) > atol2) & ~broken).item()):
             break
+        bicgstab.iterations += 1
         rho_ = torch.dot(rhat, r)
         beta = rho_ / rho * alpha / omega
         p = r + beta * (p - omega * q)
@@ -56,6 +59,9 @@ def bicgstab(A: Callable, b: torch.Tensor, *, tol: float = 1e-5,
     return x
 
 
+bicgstab.iterations = 0
+
+
 def newton_krylov(
     residual_fn: Callable,
     u0: torch.Tensor,
@@ -66,25 +72,33 @@ def newton_krylov(
     krylov_tol: float = 1e-5,
     krylov_max_iters: int = 400,
     precond_diag: torch.Tensor = None,
+    precond_apply: Callable = None,
 ) -> NewtonResult:
     """Solve residual_fn(u) = 0 by damped Newton with matrix-free BiCGStab.
 
     Tolerances are relative to the initial residual norm. Each step tries
     the step fractions (1, 0.5, 0.25, 0.1) * damping and keeps the one with
     the smallest residual; a step that does not lower the residual ends the
-    iteration. A Krylov solve that diverged (non-finite) is replaced by the
-    Jacobi-preconditioned residual, a steepest-descent-like step.
+    iteration. The Krylov solve is preconditioned by `precond_apply` (e.g.
+    a multigrid V-cycle, multigrid.py) when given, else by the Jacobi
+    diagonal `precond_diag`. A Krylov solve that diverged (non-finite) is
+    replaced by the preconditioned residual, a steepest-descent-like step.
     """
     minv = 1.0 / precond_diag if precond_diag is not None else None
+    if precond_apply is not None:
+        M = precond_apply
+    elif minv is not None:
+        M = lambda v: v * minv  # noqa: E731
+    else:
+        M = None
 
     def lin_solve(u, rhs):
         def jvp_fn(v):
             return torch.func.jvp(residual_fn, (u,), (v,))[1]
 
-        M = (lambda v: v * minv) if minv is not None else None
         sol = bicgstab(jvp_fn, rhs, tol=krylov_tol, maxiter=krylov_max_iters, M=M)
         bad = ~torch.isfinite(torch.sum(sol))
-        fallback = rhs * minv if minv is not None else rhs
+        fallback = M(rhs) if M is not None else rhs
         return torch.where(bad, fallback, sol)
 
     rnorm = torch.linalg.norm(residual_fn(u0))
@@ -108,6 +122,10 @@ def newton_krylov(
         u = torch.where(improved, u + alphas[best] * du, u)
         rnorm = torch.where(improved, rnorms[best], rnorm)
         it += 1
+        newton_krylov.steps += 1
     # JAX's loop jumps its counter to max_steps when a step does not improve
     iterations = it if bool(improved.item()) else max_steps
     return NewtonResult(u=u, residual_norm=rnorm, iterations=iterations)
+
+
+newton_krylov.steps = 0

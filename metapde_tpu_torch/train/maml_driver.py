@@ -24,12 +24,18 @@ outer point sets the JAX chain consumes (one per inner step and one for the
 final inner loss; one outer set per step and the outer_loss_key aux set).
 step_core takes those draws as an argument, so tests pass JAX's own draws.
 
+run() solves the eval tasks' ground truth at
+cfg.solver.ground_truth_resolution through the cache in
+<out_dir>/gt_cache_torch (the JAX package's <out_dir>/gt_cache holds JAX
+entries, which the port neither reads nor writes).
+
 Not ported: a mesh (mesh.n_task_shards or n_point_shards > 1), viz_every,
-branch_aware_val, profile_dir, the ground-truth cache, non-Poisson PDEs,
-deploy.optimizer and deploy.n_starts > 1; each raises NotImplementedError.
+branch_aware_val, profile_dir, non-Poisson PDEs, deploy.optimizer and
+deploy.n_starts > 1; each raises NotImplementedError.
 """
 
 import dataclasses
+import os
 from functools import partial
 from typing import Optional
 
@@ -41,10 +47,12 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..interop import params_from_numpy
 from ..meta import maml
 from ..models import make_field
+from ..models.siren import mixed_precision_scope
 from ..pdes import get_pde
 from ..utils import Timer
 from ..utils.trees import global_norm, tree_map, tree_stack
 from . import checkpoints as ckpt
+from .gt_cache import task_cache_extra
 from .metrics import prepare_logging
 from .optimizers import adam, apply_updates, from_jax_state, get_optimizer
 from .validation import get_ground_truth, make_validation_fn
@@ -130,8 +138,9 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
 
     def step_core(batch, params, lrs, opt_state, lr_opt_state):
         """One outer step on given draws (the JAX package's _step_core)."""
-        (model_grad, lr_grad), losses, meta_losses = maml.multi_task_grad_and_losses(
-            maml_def, task_loss, batch, params, lrs)
+        with mixed_precision_scope(model_cfg):
+            (model_grad, lr_grad), losses, meta_losses = maml.multi_task_grad_and_losses(
+                maml_def, task_loss, batch, params, lrs)
         with torch.no_grad():
             # norm on the model part, the scale applied to both
             meta_grad_norm = global_norm(model_grad)
@@ -190,8 +199,9 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
             return torch.cat([x, pad], dim=0)
 
         lrs_k = tree_map(_take_k, lrs)
-        final_params, _ = maml.single_task_rollout(
-            maml_def._replace(inner_steps=inner_steps), params, inner_loss_fn, lrs_k)
+        with mixed_precision_scope(model_cfg):
+            final_params, _ = maml.single_task_rollout(
+                maml_def._replace(inner_steps=inner_steps), params, inner_loss_fn, lrs_k)
         return final_params
 
     deploy_final_model = get_final_model
@@ -328,8 +338,13 @@ def run(cfg: Config, device=DEFAULT_DEVICE):
     if eval_seed is None:
         eval_seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
     gt_params, gt_gen = _eval_tasks(pde, eval_seed, cfg.task.n_eval, device)
+    cache_dir = (os.path.join(cfg.train.out_dir, "gt_cache_torch")
+                 if cfg.train.out_dir else None)
     bundle = get_ground_truth(pde, gt_params, gt_gen, cfg.task.validation_points,
-                              cfg.solver.ground_truth_resolution)
+                              cfg.solver.ground_truth_resolution, cache_dir=cache_dir,
+                              cache_extra=task_cache_extra(cfg.task))
+    log(f"ground truth at resolution {cfg.solver.ground_truth_resolution}: "
+        f"{bundle.solves} solved, {bundle.cache_hits} read from {cache_dir}")
     validation_fn = make_validation_fn(
         pde, partial(c["make_coef_func_batched"], inner_steps=cfg.maml.inner_steps),
         cfg.task.n_eval)

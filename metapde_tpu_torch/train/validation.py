@@ -1,6 +1,6 @@
 """Ground truth and validation metrics
-(counterpart of metapde_tpu/train/validation.py: the plain branch, without
-symmetry, per-timestep or branch-aware metrics, and without a cache).
+(counterpart of metapde_tpu/train/validation.py: the plain branch and the
+ground-truth cache, without symmetry, per-timestep or branch-aware metrics).
 
 Metric semantics kept from the JAX package:
 - val_mse: mean squared error of the k-step-adapted field against the
@@ -23,21 +23,40 @@ class GroundTruthBundle(NamedTuple):
     gt_vals: torch.Tensor  # [n_eval, V, out_dim]
     coords: torch.Tensor   # [n_eval, V, in_dim]
     gt_params: list        # per-task params tuples
+    solves: int = 0        # ground truths solved by this call
+    cache_hits: int = 0    # ground truths read from the cache
 
 
-def get_ground_truth(pde, gt_params_list, gen, n_points, resolution) -> GroundTruthBundle:
+def get_ground_truth(pde, gt_params_list, gen, n_points, resolution,
+                     cache_dir=None, cache_extra=None) -> GroundTruthBundle:
     """Solve each eval task and tabulate its values at `n_points` validation
-    coords drawn from `gen`, on the task params' device."""
+    coords drawn from `gen`, on the task params' device.
+
+    cache_dir: a GroundTruthCache directory (train/gt_cache.py). Eval tasks
+    derive from a seed, so a resumed or repeated run reads its ground truths
+    there instead of solving them again. cache_extra: the gt-affecting task
+    fields for the key (gt_cache.task_cache_extra)."""
+    cache = None
+    if cache_dir:
+        from .gt_cache import GroundTruthCache
+
+        cache = GroundTruthCache(cache_dir)
     gts, coords, vals = [], [], []
     for params in gt_params_list:
-        gt = pde.solve(params, resolution=resolution)
+        if cache is not None:
+            gt = cache.get_or_solve(pde, params, resolution, extra_hparams=cache_extra)
+        else:
+            gt = pde.solve(params, resolution=resolution)
         pts = pde.sample_validation_points(gen, n_points, params, gt)
         v = pde.evaluate_gt(gt, pts)
         gts.append(gt)
         coords.append(pts)
         vals.append(v[:, None] if v.ndim == 1 else v)
-    return GroundTruthBundle(gts=gts, gt_vals=torch.stack(vals),
-                             coords=torch.stack(coords), gt_params=list(gt_params_list))
+    return GroundTruthBundle(
+        gts=gts, gt_vals=torch.stack(vals), coords=torch.stack(coords),
+        gt_params=list(gt_params_list),
+        solves=cache.solves if cache is not None else len(gts),
+        cache_hits=cache.hits if cache is not None else 0)
 
 
 class ValidationResult(NamedTuple):

@@ -156,6 +156,29 @@ def test_validation_call_makes_one_batched_inference(k, monkeypatch):
 
 
 @pytest.mark.parametrize("k", [0, 2])
+def test_bf16_validation_call_makes_one_f32_kernel_call(k, monkeypatch):
+    """Under the flagship's compute_dtype="bfloat16" the kernel gate still
+    takes inference (as the JAX dispatcher, whose Pallas kernel computes in
+    f32): one batched wrapper call per validation call, on f32 inputs and
+    params; the adaptation before it runs the bf16 chain."""
+    tc = maml_driver.build(parse_overrides(Config(), OVERRIDES[:2] + [
+        "--task.inner_points=64", "--task.validation_points=64",
+        "--model.compute_dtype=bfloat16"]), "cpu")
+    _, model, tasks, coords = _small_deployment()
+    calls = []
+    orig = siren_fused.siren_apply_fused_batched
+    monkeypatch.setattr(siren_fused, "siren_apply_fused_batched",
+                        lambda p, x, cfg, shared=False: calls.append(
+                            (x.dtype, {t.dtype for t in tree_leaves(p)}))
+                        or orig(p, x, cfg, shared))
+    val_fn = make_validation_fn(
+        tc["pde"], partial(tc["make_coef_func_batched"], inner_steps=k), 2)
+    val = val_fn(model, tasks, coords, torch.ones(2, 64, 1))
+    assert calls == [(torch.float32, {torch.float32})]
+    assert torch.isfinite(val.rel_err)
+
+
+@pytest.mark.parametrize("k", [0, 2])
 def test_batched_coefs_equal_per_task_coefs_bit_for_bit(k):
     tc, model, tasks, coords = _small_deployment()
     batched = tc["make_coef_func_batched"](
@@ -204,6 +227,24 @@ def test_deploy_bench_leaves_the_jax_rows_alone(tmp_path):
     assert [json.loads(l)["inner_steps"] for l in ours] == [0]
 
 
+def test_bf16_deploy_writes_its_own_rows(tmp_path):
+    """As the JAX CLI's suffix: a bf16 bench never overwrites the f32 rows."""
+    run_dir = tmp_path / "p30k_f32_s1"
+    run_dir.mkdir()
+    (run_dir / "checkpoint_best.pickle").write_bytes(CKPT.read_bytes())
+    f32_rows = b'{"inner_steps": 0}\n'
+    (run_dir / "deploy_bench_torch_n2_best.jsonl").write_bytes(f32_rows)
+    rows = deploy_bench.main([
+        "--device=cpu", "--algo=maml", f"--train.load_model_from_expt={run_dir}",
+        "--model.compute_dtype=bfloat16", "--solver.ground_truth_resolution=4",
+        "--task.n_eval=2", "--task.validation_points=64", "--task.inner_points=64",
+        "--inner-steps-list=1", "--checkpoint=best", "--repeats=1"])
+    assert (run_dir / "deploy_bench_torch_n2_best.jsonl").read_bytes() == f32_rows
+    ours = (run_dir / "deploy_bench_torch_bfloat16_n2_best.jsonl").read_text().splitlines()
+    assert [json.loads(l)["inner_steps"] for l in ours] == [1]
+    assert np.isfinite(rows[0]["val_rel_err"])
+
+
 def test_deploy_bench_raises_for_unported_options(tmp_path):
     base = ["--device=cpu", f"--train.load_model_from_expt={tmp_path}"]
     with pytest.raises(NotImplementedError):
@@ -216,12 +257,16 @@ def test_deploy_bench_raises_for_unported_options(tmp_path):
         deploy_bench.main(base + ["--deploy.optimizer=adam"])
 
 
-def test_profile_deploy_on_cpu_reports_no_device_numbers():
+def test_profile_deploy_on_cpu_reports_no_device_numbers(tmp_path):
     from metapde_tpu_torch.cli import profile_deploy
 
     assert profile_deploy._busy_us([(0, 2), (1, 3), (5, 6)]) == 4
+    # a copy of the run dir: the ground-truth cache goes beside it
+    run_dir = tmp_path / "p30k_f32_s1"
+    run_dir.mkdir()
+    (run_dir / "checkpoint_best.pickle").write_bytes(CKPT.read_bytes())
     rows = profile_deploy.main([
-        "--device=cpu", f"--train.load_model_from_expt={RUN_DIR}", "--checkpoint=best",
+        "--device=cpu", f"--train.load_model_from_expt={run_dir}", "--checkpoint=best",
         "--task.n_eval=1", "--solver.ground_truth_resolution=2",
         "--task.validation_points=64", "--task.inner_points=64", "--inner-steps-list=0,1"])
     assert [r["k"] for r in rows] == [0, 1]

@@ -77,9 +77,25 @@ def test_evaluate_matches_jax_on_a_shared_grid():
                                j_vals, atol=1e-6)
 
 
-def test_multigrid_resolutions_are_not_ported():
-    with pytest.raises(NotImplementedError):
+def test_multigrid_resolutions_are_not_ported(monkeypatch):
+    """The name predates the multigrid port: resolution 32 now takes the
+    multigrid preconditioner under precond="auto" (3 pre- and 3 post-sweeps,
+    as the JAX solve sets them); tests/test_torch_multigrid.py holds the mg
+    solve against the JAX package. The spy stops the solve once the
+    preconditioner is built."""
+    built = []
+
+    def spy(geo_params, resolution, **kw):
+        built.append((resolution, kw))
+        raise StopIteration
+
+    monkeypatch.setattr(fem_poisson, "make_polar_mg_preconditioner", spy)
+    with pytest.raises(StopIteration):
         fem_poisson.solve(_t(_task(0)), resolution=32)
+    assert built == [(32, {"pre_sweeps": 3, "post_sweeps": 3})]
+    assert fem_poisson._auto_precond(16) == "jacobi" and fem_poisson._auto_precond(64) == "mg"
+    with pytest.raises(ValueError):
+        fem_poisson.solve(_t(_task(0)), resolution=2, precond="ilu")
 
 
 def test_solve_leaves_the_tf32_flags_as_it_found_them():

@@ -175,11 +175,19 @@ def test_loss_zero_for_constant_field_and_zero_source():
 
 
 def test_loss_without_vhd_is_not_ported():
+    """The name predates ops/operators.py: a field without .vhd now takes the
+    autodiff weighted-Laplacian branch, which equals the vhd branch
+    (tests/test_torch_operators.py holds it against the JAX package)."""
     pde = get_pde(TaskConfig())
     params = pde.sample_params(_gen(0))
     points = pde.sample_points(_gen(1), 8, params)
-    with pytest.raises(NotImplementedError):
-        pde.loss_fn(lambda x: torch.zeros(x.shape[:-1]), points, params)
+    field = make_field(FieldConfig(num_layers=2, layer_size=16))
+    fp = field.init(_gen(2))
+    plain = pde.loss_fn(lambda x: field.apply(fp, x), points, params)
+    fused = pde.loss_fn(field.bind(fp), points, params)
+    for a, b in zip(plain, fused):
+        for k in a:
+            np.testing.assert_allclose(float(a[k]), float(b[k]), rtol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["td_burgers", "hyper_elasticity"])

@@ -19,7 +19,7 @@ from metapde_tpu.models import make_field as j_make_field
 from metapde_tpu.ops import pallas_siren
 from metapde_tpu_torch.config import FieldConfig
 from metapde_tpu_torch.interop import params_from_numpy
-from metapde_tpu_torch.models import make_field
+from metapde_tpu_torch.models import make_field, siren
 from metapde_tpu_torch.models.siren import field_apply_vhd
 from metapde_tpu_torch.ops import siren_fused
 from metapde_tpu_torch.utils.trees import tree_map
@@ -281,9 +281,42 @@ def test_init_distribution_bounds():
 
 
 def test_compute_dtype_is_not_ported():
+    """The name predates the port of compute_dtype: a bf16 config now runs
+    the mixed chain (tests/test_torch_mixed_precision.py holds it against
+    the JAX package) and returns f32 values near the f32 chain's."""
     _, t_field, _, p = _pair(dict(compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError):
-        t_field.apply(p, torch.tensor(_points(4)))
+    _, t_f32, _, _ = _pair(dict())
+    x = torch.tensor(_points(64))
+    u, u32 = t_field.apply(p, x), t_f32.apply(p, x)
+    assert u.dtype == torch.float32 and u.shape == u32.shape
+    assert 0 < float(torch.linalg.norm(u - u32) / torch.linalg.norm(u32)) < 3e-2
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_kernel_gate_ignores_compute_dtype(batched, monkeypatch):
+    """The JAX dispatcher's gate has no compute_dtype condition: under bf16
+    the fused kernel (f32, as the Pallas kernel) takes inference, once per
+    call. On the same params it equals the port's f32 path and the JAX
+    package's apply_inference (the Pallas kernel in interpret mode), 1e-5."""
+    kw = dict(use_pallas_inference=True, compute_dtype="bfloat16")
+    j_field, t_field, j_params, t_params = _pair(kw)
+    _, t_f32, _, _ = _pair(dict(use_pallas_inference=True))
+    assert siren._kernel_fits(t_field.cfg)
+    calls = []
+    orig = siren_fused.siren_apply_fused_batched
+    monkeypatch.setattr(siren_fused, "siren_apply_fused_batched",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    x = _points(300)
+    if batched:
+        u = t_field.apply_inference_batched(t_params, torch.tensor(x)[None], shared=True)[0]
+        u32 = t_f32.apply_inference_batched(t_params, torch.tensor(x)[None], shared=True)[0]
+    else:
+        u = t_field.apply_inference(t_params, torch.tensor(x))
+        u32 = t_f32.apply_inference(t_params, torch.tensor(x))
+    assert calls == [1, 1]
+    assert u.dtype == torch.float32
+    _close(u, u32)
+    _close(u, j_field.apply_inference(j_params, x))
 
 
 def test_sine_sass_counts_the_fast_path():

@@ -167,4 +167,16 @@ def test_train_bench_prints_its_line_on_the_cpu(capsys):
         row["outer_steps_per_s"] * 2 * (2 * 32 + 3 * 32))
     # no card: the device columns are not measured
     assert row["device_busy_ms_per_step"] is None and row["kernels_per_step"] is None
-    assert row["config"]["compute_dtype"] is None and row["config"]["remat"] is False
+    # bench.py's flagship is bf16; the CPU has no bf16 GEMM with an f32 output
+    assert row["config"]["compute_dtype"] == "bfloat16" and row["config"]["remat"] is False
+    assert row["bf16_gemm"] == "upcast" and row["bf16_gemm_support"]["kernel"] is not True
+
+
+def test_train_bench_times_the_f32_variant_on_request(capsys):
+    row = train_bench.main(["--device=cpu", "--block=1", "--blocks=1", "--maml.bsize=2",
+                            "--maml.inner_steps=1", "--task.inner_points=16",
+                            "--task.outer_points=16", "--model.num_layers=2",
+                            "--model.layer_size=8", "--model.compute_dtype=null"])
+    assert row["config"]["compute_dtype"] is None
+    assert row["bf16_gemm"] is None and row["bf16_gemm_support"] is None
+    assert row["outer_steps_per_s"] > 0
