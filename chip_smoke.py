@@ -8,7 +8,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
   1 build     nvcc builds csrc/siren_fused.cu for sm_90a (or finds it built),
               with ptxas's register and spill report
   2 kernel    siren_fused against its plain PyTorch version on the card, max
-              |diff| <= 1e-5 on twelve cases: the four configs of
+              |diff| <= 1e-5 on thirteen cases: the four configs of
               tests/test_pallas_siren.py, one task at the main path's shape
               and at 2^20 points, 8 tasks x 1024 points in one launch with
               per-task and with shared weights, 8 layers at width 128 (weights
@@ -16,14 +16,16 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               per-task cases with more (task, tile) items than the grid has
               blocks, so that blocks cross task boundaries: 8 x 2^14 at 3x64
               (resident weights reloaded) and 3 x 2^15 at 8 layers of 128
-              (the streaming path across items and tasks); for the timed
+              (the streaming path across items and tasks), and LEAP's
+              validation, 8 x 4096 at 5x64 with per-task weights; for the timed
               cases, CUDA-event times (median of 20 after 3 warm-ups) of the
               kernel alone on weights packed beforehand and of the wrapper
               with its packing, the kernel's device time under torch.profiler
               (launch gaps excluded), the plain version's time, and the
               card's least time for the same work, both for this design
               (bound_ms) and as f32 FMAs alone (bound_f32_ms, the bound of
-              earlier rows)
+              earlier rows), and the launch plan (resident weights or
+              streamed, shared memory a block, blocks an SM)
   3 parity    a small deployment on the card and on the CPU, same tasks and
               points: metrics agree to 1e-2
   4 deploy    the Poisson MAML deployment path end to end through
@@ -74,11 +76,43 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
  11 train_bench  cli/train_bench on bench.py's flagship config, bf16 as
               bench.py runs it, then the f32 variant (4 timed blocks of 5
               outer steps each), with the form of the bf16 products that ran
-Then a JSON line with every kernel's numbers (with the training path's
-launches), one with the training numbers and the total seconds, and last
-the ok line. A failed check raises: the exit code is then not 0. A
+ 12 leap_parity  a tiny LEAP meta-training (2 layers of 32, bsize 4, 3
+              inner steps, 128 points, 3 outer steps) on the card and on the
+              CPU on the same host draws, TF32 off: params within 1e-4 of
+              each leaf's scale after every step, meta-losses within rtol
+              1e-3
+ 13 leap_resume_jax  one outer step at the width of
+              results_poisson_leap/lp2_4 (5x64, bsize 8, 60 inner steps,
+              4096 points) from its checkpoint_step_60000.pickle with its
+              Adam state, on the card and on the CPU, same draws and bars
+ 14 leap_deploy  cli/deploy_bench --algo=leap on a copy of lp2_4 at its
+              full width: 8 fresh tasks, 4096 inner and validation points,
+              k = 0, 5, 20, 60, ground truth at resolution 32 (multigrid)
+              through gt_cache_torch/; 16 kernel launches (one per
+              validation call, every task in one batched rollout and one
+              launch), finite values, the k = 60 median below k = 0 and
+              within 3x of the JAX package's CPU median; then the same with
+              --deploy.optimizer=adam at k = 0, 50, 200 from the cached
+              ground truths (leap_deploy_adam): 12 launches, no Newton step,
+              the same kind of bars at k = 200
+ 15 leap_train  cli/leap_pde on a copy of lp2_4's config.json at its full
+              width, cut to 2 outer steps in one block (cuts listed in
+              `reduced`), validation through the kernel at step 2 on 1
+              eval task against ground truth at resolution 32; the checks
+              of phase train against lp2_4's files; a resumed run() solves
+              nothing; then two unprofiled outer steps (steps/s, draw s a
+              step, peak memory) and one under torch.profiler (launches,
+              device-busy ms, idle share)
+Then a JSON line with every kernel's numbers (with the training and LEAP
+paths' launches), one with the training numbers and the total seconds, and
+last the ok line. A failed check raises: the exit code is then not 0. A
 watchdog ends a hung run after 840 s with a traceback. Needs a CUDA device;
 imports nothing of JAX or metapde_tpu.
+
+    python3 chip_smoke.py PHASE [PHASE ...]
+
+runs the device and build phases and then only the named phases (for
+development; it prints no kernel line and no ok line).
 """
 
 import faulthandler
@@ -95,7 +129,7 @@ from pathlib import Path
 import torch
 from torch.autograd import DeviceType
 
-from metapde_tpu_torch.cli import deploy_bench, maml_pde, train_bench
+from metapde_tpu_torch.cli import deploy_bench, leap_pde, maml_pde, train_bench
 from metapde_tpu_torch.cli.profile_deploy import _busy_us
 from metapde_tpu_torch.config import Config, FieldConfig, load_run_config, parse_overrides
 from metapde_tpu_torch.device import full_f32_matmuls
@@ -104,7 +138,7 @@ from metapde_tpu_torch.models import make_field
 from metapde_tpu_torch.ops import _build, siren_fused
 from metapde_tpu_torch.pdes import get_pde
 from metapde_tpu_torch.solvers import fem_poisson, multigrid, newton
-from metapde_tpu_torch.train import checkpoints, maml_driver, optimizers
+from metapde_tpu_torch.train import checkpoints, leap_driver, loop, maml_driver, optimizers
 from metapde_tpu_torch.utils.trees import tree_leaves, tree_map
 
 faulthandler.dump_traceback_later(840, exit=True)
@@ -140,6 +174,23 @@ BF16_LEAF_TOL = 1e-2
 # the multigrid ground truth, card against CPU, of the grid's largest |value|
 MG_RES = 32
 MG_TOL = 1e-4
+LEAP_RUN = REPO / "results_poisson_leap" / "lp2_4"
+LEAP_CKPT = LEAP_RUN / "checkpoint_step_60000.pickle"
+# Median val_rel_err from the JAX package's deploy_bench on the CPU on a
+# copy of lp2_4 (its config: 4096 inner and validation points, ground truth
+# at resolution 32), at the largest k of each protocol (command and output
+# in PERF.md):
+#   python -m metapde_tpu.cli.deploy_bench --algo=leap --from_run=<copy of lp2_4> \
+#     --model.use_pallas_inference=true --task.n_eval=8 --inner-steps-list=0,5,20,60
+JAX_CPU_LEAP_K60_MEDIAN = 0.00035569517058320343
+#   ... --deploy.optimizer=adam --inner-steps-list=0,50,200 (the rest as above)
+JAX_CPU_LEAP_ADAM_K200_MEDIAN = 0.0007742956513538957
+LEAP_KS = (0, 5, 20, 60)
+LEAP_ADAM_KS = (0, 50, 200)
+# lp2_4's config knobs the port refuses or the bar command sets
+LEAP_OVERRIDES = {"train.viz_every": 0, "model.use_pallas_inference": "true"}
+LEAP_TRAIN_CUTS = {"train.outer_steps": 2, "train.steps_per_call": 2, "train.val_every": 2,
+                   "train.checkpoint_every": 2, "task.n_eval": 1}
 # H100 SXM published peaks (dense, at the 700 W limit): TF32 on the tensor
 # cores, f32 outside them, and HBM bandwidth. The SFU returns 16 sines per
 # clock per SM where the CUDA cores do 128 f32 FMAs (2 flops each): the CUDA
@@ -266,10 +317,12 @@ KERNEL_CASES = [  # (name, FieldConfig overrides, tasks, points, weights)
     # next item's first layer while the last one computes)
     ("tasks_cross", {}, 8, 1 << 14, "per_task"),
     ("wide_deep_tasks", dict(num_layers=8, layer_size=128), 3, 1 << 15, "per_task"),
+    # LEAP's validation: 8 tasks x 4096 points at lp2_4's 5x64, adapted weights
+    ("leap_path", dict(num_layers=5), 8, 4096, "per_task"),
 ]
 CROSSING = ("tasks_cross", "wide_deep_tasks")
 TIMED = ("main_path", "main_path_2pow20", "main_path_batched", "main_path_shared",
-         "tasks_cross")
+         "tasks_cross", "leap_path")
 # csrc/siren_fused.cu: points per (task, tile) item, and the most blocks of
 # its 256 threads an SM holds (2048 threads), so the most its persistent
 # grid can have per SM
@@ -296,8 +349,13 @@ def _case_inputs(cfg, n_tasks, n, weights, seed):
 
 def phase_kernel():
     t0 = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    with full_f32_matmuls():  # the plain version's products in f32
+        results = _kernel_cases()
+    emit("kernel", t0, name="siren_fused", tol=KERNEL_TOL, cases=results)
+    return results
+
+
+def _kernel_cases():
     base = dict(num_layers=3, layer_size=64, in_dim=2)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
@@ -339,8 +397,8 @@ def phase_kernel():
                 cfg, n_tasks * n, sets)
             row["bound_f32_ms"], _ = siren_bound_f32_ms(cfg, n_tasks * n, sets)
             row["sin_per_point"] = cfg.num_layers * cfg.layer_size
+            row.update(siren_fused.launch_plan(dims, x.device)._asdict())
         results[name] = row
-    emit("kernel", t0, name="siren_fused", tol=KERNEL_TOL, cases=results)
     return results
 
 
@@ -380,49 +438,60 @@ def phase_parity():
          cpu={r["inner_steps"]: r["val_rel_err_median"] for r in cpu})
 
 
-def _deploy_checked(tmp, name, resolution, jax_median, extra=()):
-    """cli/deploy_bench on 8 fresh tasks with ground truth at `resolution`
-    (a run dir and its gt_cache_torch/ under `tmp`), the launches counted
-    from 0 over the run, held to the phase's bars; returns (launches, the
-    median val_rel_err for each k)."""
+def _deploy_checked(tmp, name, deploy, ks, jax_median, **numbers):
+    """deploy() (cli/deploy_bench on 8 fresh tasks, a run dir and its
+    gt_cache_torch/ under `tmp`) with the launches counted from 0 over the
+    run, held to the phase's bars at the largest k: one launch per
+    validation call, 8 cached ground truths, finite values, below k = 0 and
+    within K5_FACTOR of the JAX package's CPU median. Returns (launches,
+    the median val_rel_err for each k)."""
     t0 = time.perf_counter()
     siren_fused.siren_apply_fused_batched.launches = 0
-    rows = _deploy(tmp, [f"--solver.ground_truth_resolution={resolution}",
-                         "--task.n_eval=8",
-                         "--inner-steps-list=" + ",".join(map(str, DEPLOY_KS)),
-                         f"--repeats={DEPLOY_REPEATS}", *extra])
+    rows = deploy()
     torch.cuda.synchronize()
     launches = siren_fused.siren_apply_fused_batched.launches
     cached = sorted(p.name for p in (Path(tmp) / "gt_cache_torch").glob("*.npz"))
     # one launch per validation call: a warm-up and the timed repeats per k
-    expected = len(DEPLOY_KS) * (1 + DEPLOY_REPEATS)
+    expected = len(ks) * (1 + DEPLOY_REPEATS)
     if launches != expected:
-        raise AssertionError(f"the deployment path launched the siren_fused kernel "
-                             f"{launches} times, expected {expected}")
+        raise AssertionError(f"{name} launched the siren_fused kernel {launches} times, "
+                             f"expected {expected}")
     if len(cached) != 8:
         raise AssertionError(f"{len(cached)} ground truths in gt_cache_torch, expected 8")
     for r in rows:
         bad = [k for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)]
         if bad:
-            raise AssertionError(f"k={r['inner_steps']}: non-finite {bad}")
+            raise AssertionError(f"{name} k={r['inner_steps']}: non-finite {bad}")
     med = {r["inner_steps"]: r["val_rel_err_median"] for r in rows}
-    if sorted(med) != list(DEPLOY_KS):
-        raise AssertionError(f"deploy rows for k={sorted(med)}, expected {DEPLOY_KS}")
-    if not med[5] < med[0]:
-        raise AssertionError(f"k=5 median rel err {med[5]} not below k=0 {med[0]}")
-    if not med[5] <= K5_FACTOR * jax_median:
-        raise AssertionError(f"k=5 median rel err {med[5]} above {K5_FACTOR} x the "
-                             f"JAX CPU median {jax_median}")
-    emit(name, t0, resolution=resolution, launches=launches, median_rel_err=med,
-         jax_cpu_k5_median=jax_median,
-         time_per_task_s={r["inner_steps"]: r["time_per_task_s"] for r in rows})
+    if sorted(med) != list(ks):
+        raise AssertionError(f"{name} rows for k={sorted(med)}, expected {ks}")
+    top = ks[-1]
+    if not med[top] < med[0]:
+        raise AssertionError(f"{name}: k={top} median rel err {med[top]} not below k=0 {med[0]}")
+    if not med[top] <= K5_FACTOR * jax_median:
+        raise AssertionError(f"{name}: k={top} median rel err {med[top]} above {K5_FACTOR} x "
+                             f"the JAX CPU median {jax_median}")
+    emit(name, t0, launches=launches, median_rel_err=med, jax_cpu_median={top: jax_median},
+         time_per_task_s={r["inner_steps"]: r["time_per_task_s"] for r in rows},
+         self_loss_median={r["inner_steps"]: r["self_loss_median"] for r in rows}, **numbers)
     return launches, med
+
+
+def _maml_deploy_checked(tmp, name, resolution, jax_median, extra=()):
+    """p30k_f32_s1's best checkpoint at k = 0, 1, 2, 5, ground truth at
+    `resolution`."""
+    return _deploy_checked(
+        tmp, name, lambda: _deploy(tmp, [
+            f"--solver.ground_truth_resolution={resolution}", "--task.n_eval=8",
+            "--inner-steps-list=" + ",".join(map(str, DEPLOY_KS)),
+            f"--repeats={DEPLOY_REPEATS}", *extra]),
+        DEPLOY_KS, jax_median, resolution=resolution)
 
 
 def phase_deploy():
     """The deployment at resolution 16 (Jacobi-BiCGStab ground truth)."""
     with tempfile.TemporaryDirectory() as tmp:
-        return _deploy_checked(tmp, "deploy", 16, JAX_CPU_K5_MEDIAN)[0]
+        return _maml_deploy_checked(tmp, "deploy", 16, JAX_CPU_K5_MEDIAN)[0]
 
 
 def phase_deploy_mg():
@@ -433,9 +502,10 @@ def phase_deploy_mg():
     once per call, and at k = 0 (the meta-learned init, no adaptation) it
     gives the f32 pass's errors."""
     with tempfile.TemporaryDirectory() as tmp:
-        launches, med = _deploy_checked(tmp, "deploy_mg", MG_RES, JAX_CPU_K5_MEDIAN_RES32)
+        launches, med = _maml_deploy_checked(tmp, "deploy_mg", MG_RES,
+                                             JAX_CPU_K5_MEDIAN_RES32)
         newton.newton_krylov.steps = 0
-        bf16_launches, bf16_med = _deploy_checked(
+        bf16_launches, bf16_med = _maml_deploy_checked(
             tmp, "deploy_mg_bf16", MG_RES, JAX_CPU_K5_MEDIAN_RES32,
             ["--model.compute_dtype=bfloat16"])
     if newton.newton_krylov.steps:
@@ -453,10 +523,10 @@ def _solve_counted(task, device):
     BiCGStab iterations)."""
     task = tuple(a.to(device) for a in task)
     newton.bicgstab.iterations, newton.newton_krylov.steps = 0, 0
-    maml_driver.device_barrier(torch.device(device))
+    loop.device_barrier(torch.device(device))
     t0 = time.perf_counter()
     gt = fem_poisson.solve(task, resolution=MG_RES)
-    maml_driver.device_barrier(torch.device(device))
+    loop.device_barrier(torch.device(device))
     return gt, time.perf_counter() - t0, newton.newton_krylov.steps, newton.bicgstab.iterations
 
 
@@ -606,17 +676,17 @@ def phase_train_resume_jax():
          loss_rtol=TRAIN_LOSS_RTOL, steps=rows, card_s=t_card, cpu_s=t_cpu)
 
 
-def _check_final_checkpoint(fname):
+def _check_final_checkpoint(fname, ref_fname=JAX_CKPT, keys=("params", "inner_lrs")):
     """The JAX-read keys with the JAX checkpoint's types, dtypes and
     shapes, and none of the keys only the JAX package writes."""
     ours = checkpoints.load_checkpoint(str(fname))
-    ref = checkpoints.load_checkpoint(str(JAX_CKPT))
+    ref = checkpoints.load_checkpoint(str(ref_fname))
     bad = [k for k in checkpoints.JAX_ONLY_KEYS if k in ours]
     if bad:
         raise AssertionError(f"{fname.name} holds JAX-only keys {bad}")
     if type(ours["step"]) is not type(ref["step"]):
         raise AssertionError(f"step is {type(ours['step'])}, JAX writes {type(ref['step'])}")
-    for key in ("params", "inner_lrs"):
+    for key in keys:
         a, b = tree_leaves(ours[key]), tree_leaves(ref[key])
         if [(x.dtype, x.shape) for x in a] != [(y.dtype, y.shape) for y in b]:
             raise AssertionError(f"{key}: leaves differ from the JAX checkpoint's")
@@ -717,9 +787,221 @@ def phase_train_bench():
     return rows
 
 
-def main():
+def _leap_train_both(cfg, steps, state):
+    """LEAP's _train_both: `steps` outer steps of step_core on the card and
+    on the CPU from the same (params, optimizer state), on the same host
+    draws; returns per-step rows and each side's seconds. Every step is
+    taken before the bars are checked."""
+    cards, cpus = leap_driver.build(cfg, "cuda"), leap_driver.build(cfg, "cpu")
+    gen = torch.Generator().manual_seed(cfg.seed + 17)
+    cpu_state, card_state = state, tree_map(lambda t: t.to("cuda"), state)
+    rows, t_card, t_cpu = [], 0.0, 0.0
+    for _ in range(steps):
+        batch = cpus["draw_step_inputs"](gen)
+        t0 = time.perf_counter()
+        with full_f32_matmuls():
+            out_card = cards["step_core"](tree_map(lambda t: t.to("cuda"), batch), *card_state)
+            torch.cuda.synchronize()
+        t_card += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out_cpu = cpus["step_core"](batch, *cpu_state)
+        t_cpu += time.perf_counter() - t0
+        card_state, cpu_state = out_card[:2], out_cpu[:2]
+        ml_card, ml_cpu = out_card[2][:, -1].cpu(), out_cpu[2][:, -1]
+        rows.append({
+            "param_leaf_err": _leaf_err(card_state[0], cpu_state[0]),
+            "meta_loss_rel": float(((ml_card - ml_cpu).abs() / ml_cpu.abs()).max()),
+            "losses_rel": float(((out_card[2].cpu() - out_cpu[2]).abs()
+                                 / out_cpu[2].abs()).max()),
+            "grad_norm_rel": abs(float(out_card[3]) - float(out_cpu[3])) / float(out_cpu[3]),
+            "meta_loss_mean": float(ml_cpu.mean())})
+    for step, r in enumerate(rows):
+        if not r["param_leaf_err"] <= TRAIN_LEAF_TOL:
+            raise AssertionError(f"step {step}: params differ by {r['param_leaf_err']} of a "
+                                 f"leaf's scale (> {TRAIN_LEAF_TOL}); every step: {rows}")
+        if not r["meta_loss_rel"] <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"step {step}: meta-losses differ by rel {r['meta_loss_rel']} "
+                                 f"(> {TRAIN_LOSS_RTOL}); every step: {rows}")
+    return rows, t_card, t_cpu
+
+
+def phase_leap_parity():
+    t0 = time.perf_counter()
+    cfg = parse_overrides(Config(), [
+        "--model.num_layers=2", "--model.layer_size=32", "--leap.bsize=4",
+        "--leap.inner_steps=3", "--task.inner_points=128"])
+    c = leap_driver.build(cfg, "cpu")
+    state = (c["init_params"], c["outer_opt"].init(c["init_params"]))
+    rows, t_card, t_cpu = _leap_train_both(cfg, 3, state)
+    emit("leap_parity", t0, leaf_tol=TRAIN_LEAF_TOL, loss_rtol=TRAIN_LOSS_RTOL, steps=rows,
+         card_s=t_card, cpu_s=t_cpu)
+
+
+def phase_leap_resume_jax():
+    """One outer step from lp2_4's JAX checkpoint with its Adam state, at
+    its full width, on both sides."""
+    t0 = time.perf_counter()
+    cfg = load_run_config(str(LEAP_RUN))
+    ck = checkpoints.load_checkpoint(str(LEAP_CKPT))
+    state = (params_from_numpy(ck["params"]),
+             optimizers.from_jax_state(cfg.train.optimizer, ck["opt_state"]))
+    rows, t_card, t_cpu = _leap_train_both(cfg, 1, state)
+    emit("leap_resume_jax", t0, checkpoint=str(LEAP_CKPT.relative_to(REPO)),
+         step=int(ck["step"]), opt_count=int(state[1]["count"]),
+         width=f"{cfg.model.num_layers}x{cfg.model.layer_size}", bsize=cfg.leap.bsize,
+         inner_steps=cfg.leap.inner_steps, points=cfg.task.inner_points,
+         leaf_tol=TRAIN_LEAF_TOL, loss_rtol=TRAIN_LOSS_RTOL, steps=rows, card_s=t_card,
+         cpu_s=t_cpu)
+
+
+def _leap_deploy_checked(tmp, name, ks, jax_median, extra=()):
+    """cli/deploy_bench --algo=leap on a copy of lp2_4 under `tmp`, with its
+    config (4096 inner and validation points, ground truth at resolution
+    32)."""
+    run_dir = Path(tmp) / LEAP_RUN.name
+    run_dir.mkdir(exist_ok=True)
+    for f in (LEAP_CKPT.name, "config.json"):
+        shutil.copy(LEAP_RUN / f, run_dir / f)
+    overrides = [f"--{k}={v}" for k, v in LEAP_OVERRIDES.items()]
+    cfg = parse_overrides(load_run_config(str(LEAP_RUN)), overrides)
+    return _deploy_checked(
+        tmp, name, lambda: deploy_bench.main([
+            "--algo=leap", f"--from_run={run_dir}", *overrides, "--task.n_eval=8",
+            "--inner-steps-list=" + ",".join(map(str, ks)), f"--repeats={DEPLOY_REPEATS}",
+            *extra]),
+        ks, jax_median, resolution=cfg.solver.ground_truth_resolution,
+        points=cfg.task.inner_points, overrides=LEAP_OVERRIDES)
+
+
+def phase_leap_deploy():
+    """LEAP's own rollout, then the optimizer protocol from the cached
+    ground truths."""
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, _ = _leap_deploy_checked(tmp, "leap_deploy", LEAP_KS, JAX_CPU_LEAP_K60_MEDIAN)
+        newton.newton_krylov.steps = 0
+        adam_launches, _ = _leap_deploy_checked(
+            tmp, "leap_deploy_adam", LEAP_ADAM_KS, JAX_CPU_LEAP_ADAM_K200_MEDIAN,
+            ["--deploy.optimizer=adam"])
+    if newton.newton_krylov.steps:
+        raise AssertionError(f"the adam pass ran {newton.newton_krylov.steps} Newton steps: "
+                             "its ground truths were not read from the cache")
+    return launches, adam_launches
+
+
+def _leap_step_numbers(cfg, params, opt_state):
+    """Two unprofiled outer steps at cfg's width (host draw timed apart),
+    then one step under torch.profiler tracing the card."""
+    c = leap_driver.build(cfg, "cuda")
+    gen = torch.Generator().manual_seed(cfg.seed + 23)
+    torch.cuda.reset_peak_memory_stats()
+    draw_s, step_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        batch = c["draw_step_inputs"](gen)
+        t1 = time.perf_counter()
+        params, opt_state, losses, _ = c["step_core"](batch, params, opt_state)
+        float(losses[:, -1].mean())  # the host read the training loop makes
+        t2 = time.perf_counter()
+        draw_s.append(t1 - t0)
+        step_s.append(t2 - t0)
+    peak = torch.cuda.max_memory_allocated()
+    batch = c["draw_step_inputs"](gen)
+    torch.cuda.synchronize()
+    prof = _profile(lambda: c["step_core"](batch, params, opt_state))
+    return {"outer_steps_per_s": 1.0 / statistics.mean(step_s),
+            "step_s": step_s, "draw_s_per_step": statistics.mean(draw_s),
+            "max_memory_allocated_bytes": peak,
+            "profiled_step": {"launches": prof["launches"], "wall_ms": prof["wall_ms"],
+                              "device_busy_ms": prof["device_busy_ms"],
+                              "idle_share": prof["idle_share"]},
+            "device_idle_share": 1.0 - prof["device_busy_ms"] / (
+                1e3 * (statistics.mean(step_s) - statistics.mean(draw_s)))}
+
+
+def phase_leap_train():
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / LEAP_RUN.name
+        src.mkdir()
+        shutil.copy(LEAP_RUN / "config.json", src / "config.json")
+        out = Path(tmp) / "out"
+        cuts = {**LEAP_TRAIN_CUTS, **LEAP_OVERRIDES}
+        args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in cuts.items()),
+                f"--train.out_dir={out}"]
+        siren_fused.siren_apply_fused_batched.launches = 0
+        leap_pde.main(args + ["--train.expt_name=smoke"])
+        torch.cuda.synchronize()
+        launches = siren_fused.siren_apply_fused_batched.launches
+        run = out / "smoke"
+        steps = LEAP_TRAIN_CUTS["train.outer_steps"]
+        for f in ("log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
+                  f"checkpoint_step_{steps}.pickle"):
+            if not (run / f).exists():
+                raise AssertionError(f"the LEAP training run wrote no {f}")
+        recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+        jax_keys = sorted(json.loads((LEAP_RUN / "metrics.jsonl").read_text().splitlines()[0]))
+        if not recs or sorted(recs[0]) != jax_keys:
+            raise AssertionError(f"metrics.jsonl keys {sorted(recs[0]) if recs else []} != "
+                                 f"the JAX run's {jax_keys}")
+        n_val = steps // LEAP_TRAIN_CUTS["train.val_every"]
+        if len(recs) != n_val:
+            raise AssertionError(f"{len(recs)} validation records, expected {n_val}")
+        for r in recs:
+            for k in ("meta_loss", "val_meta_loss", "val_rel_err", "val_mse"):
+                if not math.isfinite(r[k]):
+                    raise AssertionError(f"step {r['step']}: {k} = {r[k]}")
+        if launches != len(recs):
+            raise AssertionError(f"the LEAP training path launched siren_fused {launches} "
+                                 f"times for {len(recs)} validation calls")
+        ckpt_keys = _check_final_checkpoint(run / f"checkpoint_step_{steps}.pickle",
+                                            LEAP_CKPT, keys=("params",))
+        config = json.loads((run / "config.json").read_text())
+        resolution = config["solver"]["ground_truth_resolution"]
+        first = _gt_log(run)
+        t1 = time.perf_counter()
+        leap_pde.main(args + ["--train.expt_name=resumed", f"--train.load_model_from_expt={run}",
+                              f"--train.outer_steps={steps + 1}"])
+        resumed_s = time.perf_counter() - t1
+        resumed = _gt_log(out / "resumed")
+        final = checkpoints.load_checkpoint(str(run / f"checkpoint_step_{steps}.pickle"))
+    n_eval = LEAP_TRAIN_CUTS["task.n_eval"]
+    if resolution != 32 or first != (n_eval, 0) or resumed != (0, n_eval):
+        raise AssertionError(f"ground truth at resolution {resolution}: (solved, read) "
+                             f"{first} then {resumed} on resume")
+    cfg = parse_overrides(load_run_config(str(LEAP_RUN)), ["--train.viz_every=0"])
+    bench = _leap_step_numbers(cfg, params_from_numpy(final["params"], "cuda"),
+                               params_from_numpy(final["torch_opt_state"], "cuda", dtype=None))
+    emit("leap_train", t0, reduced=cuts, launches=launches, validations=len(recs),
+         ground_truth_resolution=resolution, gt_solved_read=first,
+         resumed_gt_solved_read=resumed, resumed_s=resumed_s,
+         meta_loss=[r["meta_loss"] for r in recs],
+         val_rel_err=[r["val_rel_err"] for r in recs],
+         val_rel_err_median=[r["val_rel_err_median"] for r in recs],
+         deployment_time=[r["deployment_time"] for r in recs],
+         step_time=[r["step_time"] for r in recs], checkpoint_keys=ckpt_keys, bench=bench)
+    return {"launches": launches, **bench, "deployment_time": recs[-1]["deployment_time"],
+            "val_rel_err": recs[-1]["val_rel_err"], "gt_solved_read": first,
+            "resumed_gt_solved_read": resumed}
+
+
+PHASES = {
+    "kernel": phase_kernel, "parity": phase_parity, "deploy": phase_deploy,
+    "ground_truth_mg": phase_ground_truth_mg, "deploy_mg": phase_deploy_mg,
+    "train_parity": phase_train_parity, "train_parity_bf16": phase_train_parity_bf16,
+    "train_resume_jax": phase_train_resume_jax, "train": phase_train,
+    "train_bench": phase_train_bench, "leap_parity": phase_leap_parity,
+    "leap_resume_jax": phase_leap_resume_jax, "leap_deploy": phase_leap_deploy,
+    "leap_train": phase_leap_train,
+}
+
+
+def main(argv):
     phase_device()
     phase_build()
+    if argv:
+        for name in argv:
+            PHASES[name]()
+        return
     kern = phase_kernel()
     phase_parity()
     deploy_launches = phase_deploy()
@@ -730,6 +1012,10 @@ def main():
     phase_train_resume_jax()
     train = phase_train()
     bench = phase_train_bench()
+    phase_leap_parity()
+    phase_leap_resume_jax()
+    leap_deploy_launches, leap_deploy_adam_launches = phase_leap_deploy()
+    leap_train = phase_leap_train()
     main_row, big = kern["main_path_batched"], kern["main_path_2pow20"]
     timing_keys = ("ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
                    "bound_f32_ms")
@@ -755,11 +1041,18 @@ def main():
         "n": main_row["n"],
         "sin_per_point": main_row["sin_per_point"],
         "at_n_1048576": {k: big[k] for k in timing_keys},
+        "leap_deploy_launches": leap_deploy_launches,
+        "leap_deploy_adam_launches": leap_deploy_adam_launches,
+        "leap_train_launches": leap_train["launches"],
+        "at_leap_shape": {k: kern["leap_path"][k] for k in (
+            "tasks", "n", "max_abs_err", *timing_keys, "resident", "smem_bytes",
+            "blocks_per_sm", "n_sm")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"training": {"train": train,
                                    "train_bench": {k: {b: r[b] for b in BENCH_KEYS}
-                                                   for k, r in bench.items()}},
+                                                   for k, r in bench.items()},
+                                   "leap_train": leap_train},
                       "ground_truth_mg": gt_mg,
                       "total_s": time.perf_counter() - T_START}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -768,6 +1061,6 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
     faulthandler.cancel_dump_traceback_later()
     sys.exit(0)

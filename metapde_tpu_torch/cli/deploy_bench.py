@@ -1,26 +1,34 @@
 """Deployment benchmark: accuracy vs wall time for k-step adaptation
-(counterpart of metapde_tpu/cli/deploy_bench.py, MAML protocol).
+(counterpart of metapde_tpu/cli/deploy_bench.py).
 
 Load a meta-learned checkpoint, then for each k in --inner-steps-list adapt
-to n_eval fresh tasks with k learned-LR inner steps and report the wall time
-per task and the error against the FEM ground truth:
+to n_eval fresh tasks with k inner steps (MAML's learned-LR steps, LEAP's
+Adam rollout, or with --deploy.optimizer=NAME k steps of a fresh optimizer
+at deploy.inner_lr) and report the wall time per task and the error against
+the FEM ground truth:
 
     python -m metapde_tpu_torch.cli.deploy_bench --algo=maml \
         --train.load_model_from_expt=results_poisson_maml/p30k_f32_s1 \
         --solver.ground_truth_resolution=32 --model.use_pallas_inference=true \
         --inner-steps-list=0,1,2,5 --task.n_eval=8 --checkpoint=best
 
+    python -m metapde_tpu_torch.cli.deploy_bench --algo=leap \
+        --from_run=results_poisson_leap/lp2_4 --model.use_pallas_inference=true \
+        --task.n_eval=8 --inner-steps-list=0,5,20,60
+
 (resolution 32 is the one that run trained with; from 32 up the FEM solve
 takes the multigrid preconditioner). Runs on CUDA unless given
 --device=cpu. Prints one JSON row per k, with the JAX CLI's keys plus the
 device, and writes them to
-deploy_bench_torch[_<compute_dtype>]_n<n_eval>[_best].jsonl in the
-checkpoint dir, so the JAX CLI's rows
-(deploy_bench[_<compute_dtype>]_n<n_eval>[_best].jsonl) are never
-overwritten. The ground truths are cached in gt_cache_torch/ beside the
+deploy_bench_torch[_<deploy.optimizer>][_<compute_dtype>]_n<n_eval>[_best].jsonl
+in the checkpoint dir, so the JAX CLI's rows
+(deploy_bench[_<deploy.optimizer>][_<compute_dtype>]_n<n_eval>[_best].jsonl)
+are never overwritten. The ground truths are cached in gt_cache_torch/ beside the
 checkpoint dir, where the JAX CLI's cache is gt_cache/. The timing barrier
-is torch.cuda.synchronize(). Only --algo=maml is ported; LEAP,
---energy_audit, deploy.n_starts > 1 and deploy.optimizer raise.
+is torch.cuda.synchronize(). A validation call adapts every task and
+evaluates them in one inference call: LEAP and the deploy.optimizer path
+(under both algos) adapt all tasks in one batched rollout, MAML's
+learned-LR path task by task. --energy_audit and deploy.n_starts > 1 raise.
 """
 
 import json
@@ -36,16 +44,17 @@ from ..config import Config, parse_overrides
 from ..device import pop_device_flag, resolve_device
 from ..interop import params_from_numpy
 from ..train import checkpoints as ckpt
-from ..train import maml_driver
+from ..train import leap_driver, maml_driver
 from ..train.gt_cache import task_cache_extra
-from ..train.maml_driver import device_barrier
+from ..train.loop import device_barrier
 from ..train.multistart import make_score_fn
 from ..train.validation import get_ground_truth, make_validation_fn, task_generator
+from ..utils.trees import tree_map, tree_stack
 
 
-def load_model(cfg: Config, c, which: str, device):
-    """The checkpoint's (params, inner LRs) on `device`; returns
-    (model, state, fname, resolved_best)."""
+def load_model(cfg: Config, c, which: str, device, algo: str = "maml"):
+    """The checkpoint's model on `device`: (params, inner LRs) for MAML,
+    params for LEAP; returns (model, state, fname, resolved_best)."""
     expt = cfg.train.load_model_from_expt
     if not expt:
         raise SystemExit("--train.load_model_from_expt is required")
@@ -61,9 +70,11 @@ def load_model(cfg: Config, c, which: str, device):
         raise SystemExit(f"no checkpoint under {expt}")
     state = ckpt.load_checkpoint(fname)
     params = params_from_numpy(state["params"], device)
+    print(f"loaded {fname}")
+    if algo == "leap":
+        return params, state, fname, resolved_best
     lrs = (params_from_numpy(state["inner_lrs"], device)
            if "inner_lrs" in state else c["inner_lrs"])
-    print(f"loaded {fname}")
     return (params, lrs), state, fname, resolved_best
 
 
@@ -89,14 +100,15 @@ def eval_tasks(cfg: Config, pde, device):
 def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
         repeats: int = 3, which: str = "latest", energy_audit: bool = False,
         device="cuda"):
-    if algo != "maml":
-        raise NotImplementedError(f"--algo={algo}: only maml is ported")
+    drivers = {"maml": maml_driver, "leap": leap_driver}
+    if algo not in drivers:
+        raise ValueError(f"--algo={algo}: expected one of {sorted(drivers)}")
     if energy_audit:
         raise NotImplementedError("--energy_audit is not ported yet")
     device = resolve_device(str(device))
-    c = maml_driver.build(cfg, device)
+    c = drivers[algo].build(cfg, device)
     pde = c["pde"]
-    model, state, fname, resolved_best = load_model(cfg, c, which, device)
+    model, state, fname, resolved_best = load_model(cfg, c, which, device, algo)
     bundle = eval_tasks(cfg, pde, device)
 
     # oracle-free quality signal: the self-computable total task loss of the
@@ -104,13 +116,18 @@ def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
     score_fn = make_score_fn(pde, c["loss_fn"], c["field"],
                              cfg.deploy.score_points or cfg.task.validation_points)
 
+    def adapted(k):
+        """Each task's adapted params from its validation generator, in one
+        call of the driver's batched deployment."""
+        gens = [task_generator(i) for i in range(cfg.task.n_eval)]
+        finals = c["deploy_final_model_batched"](gens, model, tree_stack(bundle.gt_params),
+                                                 int(k))
+        return [tree_map(lambda x: x[i], finals) for i in range(cfg.task.n_eval)]
+
     def self_losses(k):
-        out = []
-        for i, tp in enumerate(bundle.gt_params):
-            fp = c["deploy_final_model"](task_generator(i), model, tp, int(k))
-            with torch.no_grad():
-                out.append(score_fn(task_generator(1), fp, tp))
-        return torch.stack(out).cpu().numpy()
+        with torch.no_grad():
+            return torch.stack([score_fn(task_generator(1), fp, tp)
+                                for fp, tp in zip(adapted(k), bundle.gt_params)]).cpu().numpy()
 
     device_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                    else "cpu")
@@ -133,6 +150,9 @@ def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
             "checkpoint": os.path.basename(fname),
             "checkpoint_step": int(state.get("step", -1)),
             "device": device_name,
+            **({"deploy_optimizer": cfg.deploy.optimizer,
+                "deploy_inner_lr": cfg.deploy.inner_lr} if cfg.deploy.optimizer else {}),
+            **({"compute_dtype": cfg.model.compute_dtype} if cfg.model.compute_dtype else {}),
             "time_per_task_s": dt / cfg.task.n_eval,
             "val_mse": float(val.mse),
             "val_rel_err": float(val.rel_err),
@@ -146,8 +166,10 @@ def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
         rows.append(row)
         print(json.dumps(row), flush=True)
 
-    # as the JAX CLI's suffix: a mixed-precision bench gets its own file
-    suffix = "_torch" + (f"_{cfg.model.compute_dtype}" if cfg.model.compute_dtype else "")
+    # as the JAX CLI's suffix: an optimizer-protocol or mixed-precision
+    # bench gets its own file
+    suffix = "_torch" + (f"_{cfg.deploy.optimizer}" if cfg.deploy.optimizer else "")
+    suffix += f"_{cfg.model.compute_dtype}" if cfg.model.compute_dtype else ""
     suffix += f"_n{cfg.task.n_eval}" + ("_best" if resolved_best else "")
     out = os.path.join(cfg.train.load_model_from_expt, f"deploy_bench{suffix}.jsonl")
     with open(out, "w") as f:

@@ -1,0 +1,27 @@
+"""LEAP meta-training entry point (counterpart of metapde_tpu/cli/leap_pde.py).
+
+    python -m metapde_tpu_torch.cli.leap_pde --task.pde=poisson \
+        --leap.bsize=8 --leap.inner_steps=60 --leap.inner_lr=2.5e-5 \
+        --leap.outer_lr=5e-5 --task.inner_points=4096 \
+        --train.viz_every=0 --train.expt_name=default
+
+The JAX CLI's flags (dotted config paths, config.parse_overrides, including
+--from_run=DIR) plus --device=NAME: CUDA unless given --device=cpu.
+"""
+
+import sys
+
+from ..config import Config, parse_overrides
+from ..device import pop_device_flag
+from ..train import leap_driver
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    device, argv = pop_device_flag(argv)
+    cfg = parse_overrides(Config(), argv)
+    return leap_driver.run(cfg, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -27,7 +27,7 @@ from ..config import Config, parse_overrides
 from ..device import pop_device_flag
 from ..train import maml_driver
 from ..train.validation import make_validation_fn
-from ..train.maml_driver import device_barrier
+from ..train.loop import device_barrier
 from .deploy_bench import eval_tasks, load_model
 
 

@@ -41,7 +41,7 @@ from torch.autograd import DeviceType
 
 from ..config import Config, FieldConfig, MamlConfig, TaskConfig, TrainConfig, parse_overrides
 from ..device import pop_device_flag
-from ..train import maml_driver
+from ..train import loop, maml_driver
 from .profile_deploy import _busy_us
 
 FLAGSHIP = Config(
@@ -120,7 +120,7 @@ def run(cfg: Config, device, block: int = 10, blocks: int = 3):
         out = many(gen, *state, n_steps=block)
         state = out[:4]
         ml = out[7].cpu()  # host read: the barrier
-        maml_driver.device_barrier(device)
+        loop.device_barrier(device)
         return ml
 
     if on_card:
@@ -139,7 +139,7 @@ def run(cfg: Config, device, block: int = 10, blocks: int = 3):
     for _ in range(block):
         c["draw_step_inputs"](draw_gen)
     draw_s = (time.perf_counter() - t0) / block
-    maml_driver.device_barrier(device)
+    loop.device_barrier(device)
 
     activities = [torch.profiler.ProfilerActivity.CPU]
     if on_card:

@@ -424,6 +424,70 @@ siren_fused_kernel(const float* __restrict__ x, const float* __restrict__ params
   cp_async_wait_upto(0);
 }
 
+// The device's limits, the shared-memory attribute set so far and the
+// occupancy at the last shared-memory size, kept across calls: each query
+// costs microseconds of host time.
+struct Launch {
+  int dev = -1, n_sm = 0, smem_optin = 0, per_sm = 0;
+  size_t attr_bytes = 0, occupancy_bytes = 0;
+};
+
+// Fill `net` for the shape and size its shared memory on the current
+// device: every layer resident when that fits the opt-in limit, else two
+// streaming slots. Raises the kernel's dynamic shared-memory attribute
+// when needed and queries the blocks an SM holds at that size.
+int plan(int in_dim, int hidden, int n_hidden, int out_dim, Net* net, size_t* smem,
+         Launch** out) {
+  if (in_dim < 1 || in_dim > kMaxWidth || hidden < 1 || hidden > kMaxWidth || n_hidden < 1 ||
+      out_dim < 1 || out_dim > kMaxWidth)
+    return (int)cudaErrorInvalidValue;
+  net->in_dim = in_dim;
+  net->hidden = hidden;
+  net->hidden_pad = round_up(hidden, kColBlock);
+  net->n_hidden = n_hidden;
+  net->out_dim = out_dim;
+
+  static Launch l;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev != l.dev) {
+    err = cudaDeviceGetAttribute(&l.n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&l.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    l.dev = dev;
+    l.attr_bytes = l.occupancy_bytes = 0;
+  }
+
+  const size_t fixed = (size_t)net->act_floats() + net->x_floats();
+  const size_t resident_bytes =
+      sizeof(float) * (fixed + net->resident_off(n_hidden) + net->slot_size(n_hidden));
+  // layers 1..n_hidden-1 share one size, so the largest slot is one of these
+  int slot = net->slot_size(0);
+  if (net->slot_size(1) > slot) slot = net->slot_size(1);
+  if (net->slot_size(n_hidden) > slot) slot = net->slot_size(n_hidden);
+  net->resident = resident_bytes <= (size_t)l.smem_optin;
+  net->slot_floats = slot;
+  *smem = net->resident ? resident_bytes : sizeof(float) * (fixed + 2 * (size_t)slot);
+  if (*smem > (size_t)l.smem_optin) return (int)cudaErrorInvalidValue;
+
+  if (*smem > l.attr_bytes) {
+    err = cudaFuncSetAttribute(siren_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)*smem);
+    if (err != cudaSuccess) return (int)err;
+    l.attr_bytes = *smem;
+  }
+  if (*smem != l.occupancy_bytes) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&l.per_sm, siren_fused_kernel, kThreads,
+                                                        *smem);
+    if (err != cudaSuccess) return (int)err;
+    l.occupancy_bytes = *smem;
+  }
+  *out = &l;
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 
 // x [n_tasks, n, in_dim]; params [n_tasks or 1, task_floats]: per task W_0
@@ -437,62 +501,39 @@ extern "C" int siren_fused_forward(const float* x, const float* params,
                                    long long task_stride, float* out, int n_tasks, int n,
                                    int in_dim, int hidden, int n_hidden, int out_dim,
                                    float omega, void* stream) {
-  if (n_tasks < 0 || n < 0 || in_dim < 1 || in_dim > kMaxWidth || hidden < 1 ||
-      hidden > kMaxWidth || n_hidden < 1 || out_dim < 1 || out_dim > kMaxWidth)
-    return (int)cudaErrorInvalidValue;
+  if (n_tasks < 0 || n < 0) return (int)cudaErrorInvalidValue;
   Net net;
-  net.in_dim = in_dim;
-  net.hidden = hidden;
-  net.hidden_pad = round_up(hidden, kColBlock);
-  net.n_hidden = n_hidden;
-  net.out_dim = out_dim;
+  size_t smem = 0;
+  Launch* l = nullptr;
+  const int rc = plan(in_dim, hidden, n_hidden, out_dim, &net, &smem, &l);
+  if (rc != (int)cudaSuccess) return rc;
   if (task_stride != 0 && task_stride != net.task_floats()) return (int)cudaErrorInvalidValue;
   if (n_tasks == 0 || n == 0) return (int)cudaSuccess;
-
-  // the device's limits and the kernel's occupancy, queried once per device
-  // and shared-memory size: each query costs microseconds of host time
-  static int cached_dev = -1, n_sm = 0, smem_optin = 0, per_sm = 0;
-  static size_t attr_bytes = 0, occupancy_bytes = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev != cached_dev) {
-    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return (int)err;
-    cached_dev = dev;
-    attr_bytes = occupancy_bytes = 0;
-  }
-
-  const size_t fixed = (size_t)net.act_floats() + net.x_floats();
-  const size_t resident_bytes =
-      sizeof(float) * (fixed + net.resident_off(n_hidden) + net.slot_size(n_hidden));
-  // layers 1..n_hidden-1 share one size, so the largest slot is one of these
-  int slot = net.slot_size(0);
-  if (net.slot_size(1) > slot) slot = net.slot_size(1);
-  if (net.slot_size(n_hidden) > slot) slot = net.slot_size(n_hidden);
-  net.resident = resident_bytes <= (size_t)smem_optin;
-  net.slot_floats = slot;
-  const size_t smem = net.resident ? resident_bytes : sizeof(float) * (fixed + 2 * (size_t)slot);
-  if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
-
-  if (smem > attr_bytes) {
-    err = cudaFuncSetAttribute(siren_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    attr_bytes = smem;
-  }
-  if (smem != occupancy_bytes) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, siren_fused_kernel, kThreads,
-                                                        smem);
-    if (err != cudaSuccess) return (int)err;
-    occupancy_bytes = smem;
-  }
   const long long items = (long long)n_tasks * ((n + kTile - 1) / kTile);
-  const long long cap = (long long)(per_sm > 0 ? per_sm : 1) * n_sm;
+  const long long cap = (long long)(l->per_sm > 0 ? l->per_sm : 1) * l->n_sm;
   const unsigned grid = (unsigned)(items < cap ? items : cap);
   siren_fused_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       x, params, task_stride, out, n_tasks, n, net, omega);
   return (int)cudaGetLastError();
+}
+
+// What siren_fused_forward launches for this shape on the current device,
+// without launching: resident (1: every layer's weights stay in shared
+// memory; 0: streamed through two slots), the dynamic shared memory of a
+// block, the blocks an SM holds at that size
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the SM count.
+// Returns a cudaError_t value.
+extern "C" int siren_fused_plan(int in_dim, int hidden, int n_hidden, int out_dim,
+                                int* resident, long long* smem_bytes, int* blocks_per_sm,
+                                int* n_sm) {
+  Net net;
+  size_t smem = 0;
+  Launch* l = nullptr;
+  const int rc = plan(in_dim, hidden, n_hidden, out_dim, &net, &smem, &l);
+  if (rc != (int)cudaSuccess) return rc;
+  *resident = net.resident;
+  *smem_bytes = (long long)smem;
+  *blocks_per_sm = l->per_sm;
+  *n_sm = l->n_sm;
+  return (int)cudaSuccess;
 }

@@ -32,8 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..utils.trees import (clip_by_global_norm, tree_leaves, tree_map,
-                           tree_structure_equal, tree_unflatten)
+from ..utils.trees import (clip_by_global_norm, clip_by_global_norm_per_task, tree_leaves,
+                           tree_map, tree_structure_equal, tree_unflatten)
 
 
 class MamlDef(NamedTuple):
@@ -119,22 +119,6 @@ def single_task_rollout(
     return params, (meta_loss, torch.stack(losses))
 
 
-def _per_task(v, like):
-    """Broadcast a per-task vector [T] against a leaf `like` [T, ...]."""
-    return v.reshape((-1,) + (1,) * (like.ndim - 1))
-
-
-def _clip_per_task(grads, max_norm):
-    """clip_by_global_norm for each task of a [T, ...] tree: the norm is
-    reduced over every axis but the task axis."""
-    leaves = tree_leaves(grads)
-    norm = torch.sqrt(sum(torch.sum(torch.square(g), dim=tuple(range(1, g.ndim)))
-                          for g in leaves))
-    scale = torch.where(norm > max_norm, max_norm / torch.clamp(norm, min=1e-30),
-                        torch.ones_like(norm))
-    return tree_map(lambda g: g * _per_task(scale, g), grads)
-
-
 def _set(points, s):
     return tree_map(lambda x: x[:, s], points)
 
@@ -159,7 +143,7 @@ def _batched_rollout(maml_def: MamlDef, task_loss: Callable, batch: TaskBatch,
             loss, _ = vloss(theta, inner_pts, batch.task_params)
             grads = torch.autograd.grad(loss.sum(), leaves, create_graph=create_graph)
         grads = _scale_by_lrs(tree_unflatten(theta, grads), lr, maml_def.softplus_lrs)
-        grads = _clip_per_task(grads, maml_def.inner_grad_clip)
+        grads, _ = clip_by_global_norm_per_task(grads, maml_def.inner_grad_clip)
         new = tree_map(lambda p, g: p - maml_def.inner_lr * g, theta, grads)
         if not create_graph:
             new = tree_map(torch.Tensor.detach, new)

@@ -147,7 +147,35 @@ def _library():
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
                    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    plan = lib.siren_fused_plan
+    plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int),
+                                          ctypes.POINTER(ctypes.c_longlong),
+                                          ctypes.POINTER(ctypes.c_int),
+                                          ctypes.POINTER(ctypes.c_int)]
+    plan.restype = ctypes.c_int
+    return lib
+
+
+class LaunchPlan(NamedTuple):
+    """How the kernel runs a network shape on a device."""
+
+    resident: bool      # every layer's weights stay in shared memory
+    smem_bytes: int     # dynamic shared memory of a block
+    blocks_per_sm: int  # cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    n_sm: int
+
+
+def launch_plan(dims, device) -> LaunchPlan:
+    """The kernel's plan for dims (in_dim, hidden, n_hidden, out_dim, as
+    layer_dims returns them) on a CUDA device, without launching."""
+    resident, n_sm, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem = ctypes.c_longlong()
+    with torch.cuda.device(device):
+        rc = _library().siren_fused_plan(*dims, ctypes.byref(resident), ctypes.byref(smem),
+                                         ctypes.byref(per_sm), ctypes.byref(n_sm))
+    if rc != 0:
+        raise RuntimeError(f"siren_fused_plan failed: cudaError {rc}")
+    return LaunchPlan(bool(resident.value), smem.value, per_sm.value, n_sm.value)
 
 
 def launch(packed: Packed, x, omega):
@@ -160,9 +188,10 @@ def launch(packed: Packed, x, omega):
             else torch.cuda.device(x.device))
     with on_x:
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _library()(x.data_ptr(), packed.params.data_ptr(), packed.task_stride,
-                        out.data_ptr(), n_tasks, n, packed.in_dim, packed.hidden,
-                        packed.n_hidden, packed.out_dim, float(omega), stream)
+        rc = _library().siren_fused_forward(
+            x.data_ptr(), packed.params.data_ptr(), packed.task_stride, out.data_ptr(),
+            n_tasks, n, packed.in_dim, packed.hidden, packed.n_hidden, packed.out_dim,
+            float(omega), stream)
     if rc != 0:
         raise RuntimeError(f"siren_fused_forward failed to launch: cudaError {rc}")
     siren_apply_fused_batched.launches += 1

@@ -1,0 +1,291 @@
+"""What the MAML and LEAP drivers share: the problem both build on, the
+move of host draws to the device, the run directory, the eval tasks'
+ground truth, and the meta-training loop of run() (the JAX package writes
+that loop out in each driver).
+
+A driver gives the loop its state as a dict keyed by checkpoint names: the
+model parts in the JAX layout ("params", and MAML's "inner_lrs"), and one
+entry per optimizer state ("opt_state", MAML's "lr_opt_state"), which the
+port saves under "torch_<name>" so the JAX package never reads them.
+"""
+
+import dataclasses
+import os
+from functools import partial
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..config import Config
+from ..interop import params_from_numpy
+from ..models import make_field
+from ..pdes import get_pde
+from ..utils import Timer
+from ..utils.trees import tree_map
+from . import checkpoints as ckpt
+from .gt_cache import task_cache_extra
+from .metrics import prepare_logging
+from .optimizers import from_jax_state
+from .validation import get_ground_truth, make_validation_fn
+
+
+def device_barrier(device):
+    """Wait for the device's queued work (the timing barrier)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def to_device(tree, device):
+    """Host tensors -> `device`; through pinned memory and without a host
+    wait on CUDA, so drawing the next step overlaps the device's work."""
+    if device.type == "cpu":
+        return tree
+    return tree_map(lambda t: t.pin_memory().to(device, non_blocking=True), tree)
+
+
+def problem(cfg: Config):
+    """The parts both meta-learners' builds share: (pde, model_cfg, field,
+    loss_fn, task_loss). Raises for the build options not ported yet."""
+    if cfg.mesh.n_task_shards > 1 or cfg.mesh.n_point_shards > 1:
+        raise NotImplementedError("a device mesh (mesh.n_task_shards or "
+                                  "n_point_shards > 1) is not ported yet")
+    if cfg.deploy.n_starts > 1:
+        raise NotImplementedError("multi-start deployment (deploy.n_starts > 1) "
+                                  "is not ported yet")
+    pde = get_pde(cfg.task)
+    model_cfg = dataclasses.replace(
+        cfg.model, in_dim=pde.in_dim, out_dim=pde.out_dim,
+        squeeze_scalar=pde.scalar,
+    )
+    field = make_field(model_cfg)
+
+    def loss_fn(field_fn, points, params):
+        boundary_losses, domain_losses = pde.loss_fn(field_fn, points, params)
+        loss = cfg.task.bc_weight * sum(boundary_losses.values()) + sum(
+            domain_losses.values()
+        )
+        return loss, {**boundary_losses, **domain_losses}
+
+    def task_loss(field_params, points, task_params):
+        """The loss of one task on one point set (vmapped over tasks)."""
+        return loss_fn(field.bind(field_params), points, task_params)
+
+    return pde, model_cfg, field, loss_fn, task_loss
+
+
+def check_run_options(cfg: Config):
+    if cfg.task.pde != "poisson":
+        raise NotImplementedError(f"training pde {cfg.task.pde!r}: only poisson is ported")
+    if cfg.train.viz_every > 0 and cfg.train.expt_name is not None:
+        raise NotImplementedError("viz_every: the ground-truth plots (train/viz.py) are "
+                                  "not ported yet; pass --train.viz_every=0")
+    if cfg.train.branch_aware_val:
+        raise NotImplementedError("branch_aware_val is not ported yet")
+    if cfg.train.profile_dir:
+        raise NotImplementedError("profile_dir is not ported yet; time the training "
+                                  "step with cli/train_bench")
+
+
+def start_run(cfg: Config, algo: str):
+    """Check the run options, open the run dir's log and metrics and write
+    its config.json; returns (path, log, metrics)."""
+    check_run_options(cfg)
+    out_dir = cfg.train.out_dir or f"{cfg.task.pde}_{algo}_results"
+    path, log, metrics = prepare_logging(out_dir, cfg.train.expt_name)
+    log(cfg.to_json())
+    if path is not None:
+        with open(f"{path}/config.json", "w") as f:
+            f.write(cfg.to_json())
+    return path, log, metrics
+
+
+def eval_ground_truth(cfg: Config, pde, eval_seed: int, device, log):
+    """The eval tasks of `eval_seed` and their ground truth at the config's
+    resolution, through the cache in <out_dir>/gt_cache_torch (the JAX
+    package's <out_dir>/gt_cache holds JAX entries, which the port neither
+    reads nor writes)."""
+    gen = torch.Generator().manual_seed(eval_seed)
+    gt_params = [tuple(a.to(device) for a in pde.sample_params(gen))
+                 for _ in range(cfg.task.n_eval)]
+    cache_dir = (os.path.join(cfg.train.out_dir, "gt_cache_torch")
+                 if cfg.train.out_dir else None)
+    bundle = get_ground_truth(pde, gt_params, gen, cfg.task.validation_points,
+                              cfg.solver.ground_truth_resolution, cache_dir=cache_dir,
+                              cache_extra=task_cache_extra(cfg.task))
+    log(f"ground truth at resolution {cfg.solver.ground_truth_resolution}: "
+        f"{bundle.solves} solved, {bundle.cache_hits} read from {cache_dir}")
+    return bundle
+
+
+def next_block(cfg: Config, step: int) -> int:
+    """Outer steps to take in one call from `step`: up to the next
+    log/checkpoint boundary or the end, at most train.steps_per_call."""
+    spc = max(1, cfg.train.steps_per_call)
+    if spc == 1:
+        return 1
+    n = cfg.train.outer_steps - step
+    for every in (cfg.train.log_every, cfg.train.checkpoint_every):
+        if every and every > 0:
+            n = min(n, every - step % every)
+    return max(1, min(n, spc))
+
+
+def hit(cfg: Config, every: int, step: int) -> bool:
+    """Whether the block that ended at `step` reaches an `every` boundary."""
+    if every <= 0:
+        return False
+    return (step - 1) % every == 0 if cfg.train.steps_per_call <= 1 else step % every == 0
+
+
+class Learner(NamedTuple):
+    """What a driver gives the loop.
+
+    opts: optimizer-state name -> (optimizer, the model part it updates,
+      the optimizer's name in a JAX checkpoint's state).
+    step: (generator, state, n_steps) -> (state, the last step's per-task
+      losses [T, ...], its meta-gradient norm, the per-step meta-loss
+      means [n_steps]), with no host read.
+    model: state -> the model make_coef_func_batched adapts.
+    val_meta_loss: state -> the meta-loss on the fixed validation draw."""
+
+    name: str
+    inner_steps: int
+    opts: dict
+    step: Callable
+    model: Callable
+    val_meta_loss: Callable
+
+
+def _resume(cfg: Config, learner: Learner, s: dict, gen, device, log):
+    """Load the latest checkpoint of cfg.train.load_model_from_expt into the
+    state `s`: the model parts, then the optimizer states of the port's own
+    checkpoint (with its generator, eval seed and next step, so the same
+    trajectory continues exactly) or of a JAX checkpoint (its PRNG and eval
+    keys drive JAX's threefry and cannot be replayed here). Returns
+    (resume step, eval seed or None)."""
+    fname = ckpt.latest_checkpoint(cfg.train.load_model_from_expt)
+    if not fname:
+        return 0, None
+    state = ckpt.load_checkpoint(fname)
+    for part in [k for k in s if k not in learner.opts]:
+        if state.get(part) is not None:
+            s[part] = params_from_numpy(state[part], device)
+    log(f"loaded checkpoint {fname}")
+    for d in ckpt.config_drift(cfg.train.load_model_from_expt, cfg):
+        log(f"WARNING: config drift vs loaded run: {d}")
+    for name, (opt, part, _) in learner.opts.items():
+        s[name] = opt.init(s[part])
+    try:
+        if state.get("torch_opt_state") is not None:
+            for name in learner.opts:
+                s[name] = params_from_numpy(state[f"torch_{name}"], device, dtype=None)
+            gen.set_state(torch.as_tensor(state["torch_rng_state"]))
+            resume_step = int(state["torch_next_step"])
+            log(f"resuming optimizer state at step {resume_step}")
+            log("pinned eval tasks from checkpoint torch_eval_seed")
+            return resume_step, int(state["torch_eval_seed"])
+        if state.get("opt_state") is not None:
+            for name, (_, _, jax_name) in learner.opts.items():
+                if state.get(name) is not None:
+                    s[name] = from_jax_state(jax_name, state[name], device)
+            resume_step = int(state.get("step", 0)) + 1
+            log(f"resuming optimizer state at step {resume_step} (JAX checkpoint: "
+                "new task draws and eval tasks)")
+            return resume_step, None
+    except Exception as e:
+        for name, (opt, part, _) in learner.opts.items():
+            s[name] = opt.init(s[part])
+        log(f"could not resume optimizer state ({e}); fresh optimizers")
+    return 0, None
+
+
+def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
+    """The meta-training loop (the JAX package's run()): logs, resumes from
+    the latest checkpoint of the port or of the JAX package, validates
+    every `val_every or log_every` steps against the FEM ground truth,
+    keeps the best checkpoint and writes periodic and final ones.
+    c: the driver's build; s: the fresh state. Returns the final state."""
+    path, log, metrics = start_run(cfg, learner.name)
+    device, gen = c["device"], c["generator"]
+
+    resume_step, eval_seed = 0, None
+    if cfg.train.load_model_from_expt:
+        resume_step, eval_seed = _resume(cfg, learner, s, gen, device, log)
+
+    # eval tasks are pinned across resumes by their seed, which rides in the
+    # checkpoint; a fresh run draws the seed from the training generator
+    if eval_seed is None:
+        eval_seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+    bundle = eval_ground_truth(cfg, c["pde"], eval_seed, device, log)
+    validation_fn = make_validation_fn(
+        c["pde"], partial(c["make_coef_func_batched"], inner_steps=learner.inner_steps),
+        cfg.task.n_eval)
+
+    def _state(step):
+        return {**{k: v for k, v in s.items() if k not in learner.opts},
+                **{f"torch_{k}": s[k] for k in learner.opts},
+                "torch_rng_state": gen.get_state(), "torch_eval_seed": eval_seed,
+                "torch_next_step": step}
+
+    step = resume_step
+    while step < cfg.train.outer_steps:
+        block = next_block(cfg, step)
+        with Timer() as t:
+            s, losses, meta_grad_norm, ml_means = learner.step(gen, s, block)
+            device_barrier(device)
+        step_time = t.interval / block
+        step += block
+        # log/metrics report the LAST completed step of the block
+        log_step = step - 1
+
+        meta_loss_mean = float(ml_means[-1])
+        if bool(torch.isnan(ml_means).any()):
+            log(f"encountered nan at step {log_step}")
+            break
+
+        if hit(cfg, cfg.train.val_every or cfg.train.log_every, step):
+            with Timer() as deploy_timer:
+                val = validation_fn(learner.model(s), bundle.gt_params, bundle.coords,
+                                    bundle.gt_vals)
+                device_barrier(device)
+            deployment_time = deploy_timer.interval / cfg.task.n_eval
+            val_meta_loss = learner.val_meta_loss(s)
+
+            log(
+                "step: {}, meta_loss: {}, val_meta_loss: {}, val_mse: {}, "
+                "val_rel_err: {}, val_rel_err_std: {}, deployment_time: {}, "
+                "meta_grad_norm: {}, time: {}".format(
+                    log_step, meta_loss_mean, val_meta_loss, float(val.mse),
+                    float(val.rel_err), float(val.rel_err_std), deployment_time,
+                    float(meta_grad_norm), step_time,
+                )
+            )
+            if metrics is not None:
+                metrics.log(
+                    log_step,
+                    meta_loss=meta_loss_mean,
+                    val_meta_loss=val_meta_loss,
+                    val_mse=val.mse,
+                    val_rel_err=val.rel_err,
+                    val_rel_err_std=val.rel_err_std,
+                    val_rel_err_median=val.rel_err_median,
+                    per_dim_rel_err=val.per_dim_rel_err,
+                    per_time_step_error=None,
+                    deployment_time=deployment_time,
+                    meta_grad_norm=meta_grad_norm,
+                    step_time=step_time,
+                    per_step_losses=losses.mean(dim=0),
+                )
+            if path is not None:
+                best_val = {"rel_err_median": val.rel_err_median}.get(
+                    cfg.train.best_metric, val.rel_err)
+                ckpt.save_best_checkpoint(path, log_step, float(best_val), _state(step))
+
+        if path is not None and step > 1 and hit(cfg, cfg.train.checkpoint_every, step):
+            ckpt.save_checkpoint(path, log_step, _state(step))
+
+    if path is not None:
+        ckpt.save_checkpoint(path, step, _state(step))
+    if metrics is not None:
+        metrics.close()
+    return s

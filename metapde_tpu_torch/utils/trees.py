@@ -62,6 +62,32 @@ def clip_by_global_norm(tree, max_norm):
     return tree_map(lambda x: x * scale, tree), norm
 
 
+def per_task(v, like):
+    """Broadcast a per-task vector [T] against a leaf `like` [T, ...]."""
+    return v.reshape((-1,) + (1,) * (like.ndim - 1))
+
+
+def sum_sq_per_task(tree) -> torch.Tensor:
+    """The sum of squares of each task of a tree whose leaves are [T, ...]:
+    the sums run over every axis but the task axis. Returns [T]."""
+    return sum(torch.sum(torch.square(g), dim=tuple(range(1, g.ndim)))
+               for g in tree_leaves(tree))
+
+
+def global_norm_per_task(tree) -> torch.Tensor:
+    """global_norm of each task of a [T, ...] tree. Returns [T]."""
+    return torch.sqrt(sum_sq_per_task(tree))
+
+
+def clip_by_global_norm_per_task(tree, max_norm):
+    """clip_by_global_norm for each task of a [T, ...] tree. Returns
+    (clipped tree, norms [T])."""
+    norm = global_norm_per_task(tree)
+    scale = torch.where(norm > max_norm, max_norm / torch.clamp(norm, min=1e-30),
+                        torch.ones_like(norm))
+    return tree_map(lambda g: g * per_task(scale, g), tree), norm
+
+
 def tree_stack(trees):
     """List of congruent trees -> one tree with a stacked leading axis."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)

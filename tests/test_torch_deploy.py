@@ -118,7 +118,9 @@ def test_deploy_slice_matches_jax():
     j_val = j_make_validation_fn(
         j_pde, partial(jc["make_coef_func"], inner_steps=K), 2)(
         j_model, jax.tree_util.tree_map(lambda *x: jnp.stack(x), *j_tasks), coords, j_vals)
-    t_pts = [tuple(torch.tensor(np.asarray(p)) for p in pts) for pts in inner_pts]
+    # per point kind [T, 1, n, ...]: one set per task, as deployment draws
+    t_pts = tuple(torch.tensor(np.stack([np.asarray(pts[j]) for pts in inner_pts]))[:, None]
+                  for j in range(len(inner_pts[0])))
     t_coef = partial(tc["make_coef_func_batched"], inner_steps=K, points=t_pts)
     t_val = make_validation_fn(t_pde, t_coef, 2)(t_model, t_tasks, t_coords, t_vals)
     for name in ("mse", "rel_err", "rel_err_std", "rel_err_median", "rel_err_p90"):
@@ -247,14 +249,70 @@ def test_bf16_deploy_writes_its_own_rows(tmp_path):
 
 def test_deploy_bench_raises_for_unported_options(tmp_path):
     base = ["--device=cpu", f"--train.load_model_from_expt={tmp_path}"]
-    with pytest.raises(NotImplementedError):
-        deploy_bench.main(base + ["--algo=leap"])
+    with pytest.raises(ValueError, match="--algo"):
+        deploy_bench.main(base + ["--algo=reptile"])
     with pytest.raises(NotImplementedError):
         deploy_bench.main(base + ["--energy_audit"])
     with pytest.raises(NotImplementedError):
         deploy_bench.main(base + ["--deploy.n_starts=2"])
     with pytest.raises(NotImplementedError):
-        deploy_bench.main(base + ["--deploy.optimizer=adam"])
+        deploy_bench.main(base + ["--algo=leap", "--deploy.n_starts=2"])
+
+
+LEAP_RUN = Path(__file__).resolve().parents[1] / "results_poisson_leap" / "lp2_4"
+LEAP_JAX_ROWS = ("deploy_bench.jsonl", "deploy_bench_bfloat16.jsonl")
+
+
+def _leap_copy(tmp_path):
+    """A copy of lp2_4 (its checkpoint, config and the JAX CLI's rows)."""
+    run_dir = tmp_path / "lp2_4"
+    run_dir.mkdir()
+    for f in ("checkpoint_step_60000.pickle", "config.json") + LEAP_JAX_ROWS:
+        (run_dir / f).write_bytes((LEAP_RUN / f).read_bytes())
+    return run_dir
+
+
+LEAP_SMALL = ["--device=cpu", "--algo=leap", "--model.use_pallas_inference=true",
+              "--solver.ground_truth_resolution=4", "--task.n_eval=2",
+              "--task.validation_points=64", "--task.inner_points=64", "--repeats=1"]
+
+
+def test_leap_deploy_bench_on_cpu_leaves_the_jax_rows_alone(tmp_path):
+    """--algo=leap on a copy of lp2_4 at its 5x64 width: rows for every k
+    in deploy_bench_torch_n2.jsonl, finite, adaptation lowers the error,
+    and the JAX CLI's rows in the run dir stay byte for byte."""
+    run_dir = _leap_copy(tmp_path)
+    rows = deploy_bench.main(LEAP_SMALL + [f"--from_run={run_dir}", "--inner-steps-list=0,3"])
+    assert [r["inner_steps"] for r in rows] == [0, 3]
+    assert rows[0]["checkpoint"] == "checkpoint_step_60000.pickle"
+    assert all(np.isfinite(v) for r in rows for v in r.values() if isinstance(v, float))
+    assert rows[1]["val_rel_err_median"] < rows[0]["val_rel_err_median"]
+    ours = (run_dir / "deploy_bench_torch_n2.jsonl").read_text().splitlines()
+    assert [json.loads(l)["inner_steps"] for l in ours] == [0, 3]
+    for f in LEAP_JAX_ROWS:
+        assert (run_dir / f).read_bytes() == (LEAP_RUN / f).read_bytes()
+
+
+@pytest.mark.parametrize("algo", ["maml", "leap"])
+def test_optimizer_deploy_writes_its_own_rows(algo, tmp_path):
+    """deploy.optimizer under either algo: its own file name, as the JAX
+    CLI's suffix, and the protocol in every row."""
+    if algo == "leap":
+        run_dir, best = _leap_copy(tmp_path), ""
+        args = LEAP_SMALL + [f"--from_run={run_dir}"]
+    else:
+        run_dir, best = tmp_path / "p30k_f32_s1", "_best"
+        run_dir.mkdir()
+        (run_dir / "checkpoint_best.pickle").write_bytes(CKPT.read_bytes())
+        args = ["--device=cpu", "--algo=maml", f"--train.load_model_from_expt={run_dir}",
+                "--checkpoint=best", "--solver.ground_truth_resolution=4", "--task.n_eval=2",
+                "--task.validation_points=64", "--task.inner_points=64", "--repeats=1"]
+    rows = deploy_bench.main(args + ["--deploy.optimizer=adam", "--inner-steps-list=0,2"])
+    assert [r["deploy_optimizer"] for r in rows] == ["adam", "adam"]
+    assert all(np.isfinite(r["val_rel_err"]) for r in rows)
+    ours = (run_dir / f"deploy_bench_torch_adam_n2{best}.jsonl").read_text().splitlines()
+    assert [json.loads(l)["inner_steps"] for l in ours] == [0, 2]
+    assert not (run_dir / f"deploy_bench_torch_n2{best}.jsonl").exists()
 
 
 def test_profile_deploy_on_cpu_reports_no_device_numbers(tmp_path):

@@ -77,12 +77,11 @@ def test_evaluate_matches_jax_on_a_shared_grid():
                                j_vals, atol=1e-6)
 
 
-def test_multigrid_resolutions_are_not_ported(monkeypatch):
-    """The name predates the multigrid port: resolution 32 now takes the
-    multigrid preconditioner under precond="auto" (3 pre- and 3 post-sweeps,
-    as the JAX solve sets them); tests/test_torch_multigrid.py holds the mg
-    solve against the JAX package. The spy stops the solve once the
-    preconditioner is built."""
+def test_res32_builds_the_mg_preconditioner(monkeypatch):
+    """Resolution 32 takes the multigrid preconditioner under
+    precond="auto" (3 pre- and 3 post-sweeps, as the JAX solve sets them);
+    tests/test_torch_multigrid.py holds the mg solve against the JAX
+    package. The spy stops the solve once the preconditioner is built."""
     built = []
 
     def spy(geo_params, resolution, **kw):

@@ -14,8 +14,8 @@ import torch
 
 from metapde_tpu_torch import config as config_mod
 from metapde_tpu_torch import device as device_mod
-from metapde_tpu_torch.cli import deploy_bench, maml_pde, train_bench
-from metapde_tpu_torch.train import maml_driver
+from metapde_tpu_torch.cli import deploy_bench, leap_pde, maml_pde, train_bench
+from metapde_tpu_torch.train import leap_driver, maml_driver
 
 torch.set_num_threads(1)
 
@@ -88,22 +88,24 @@ def test_package_source_imports_are_clean():
         assert not bad, (path, bad)
 
 
-def test_entry_point_refuses_missing_cuda(monkeypatch, tmp_path):
+@pytest.mark.parametrize("algo", ["maml", "leap"])
+def test_entry_point_refuses_missing_cuda(algo, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cli, driver = {"maml": (maml_pde, maml_driver), "leap": (leap_pde, leap_driver)}[algo]
     with pytest.raises(RuntimeError, match="cuda"):
         device_mod.resolve_device()
     with pytest.raises(RuntimeError, match="cuda"):
-        deploy_bench.main([f"--train.load_model_from_expt={tmp_path}"])
+        deploy_bench.main([f"--algo={algo}", f"--train.load_model_from_expt={tmp_path}"])
     with pytest.raises(RuntimeError, match="cuda"):
-        deploy_bench.run(deploy_bench.Config())
+        deploy_bench.run(deploy_bench.Config(), algo=algo)
     with pytest.raises(RuntimeError, match="cuda"):
-        maml_pde.main([f"--train.out_dir={tmp_path}", "--train.viz_every=0"])
+        cli.main([f"--train.out_dir={tmp_path}", "--train.viz_every=0"])
     with pytest.raises(RuntimeError, match="cuda"):
         train_bench.main(["--block=1", "--blocks=1"])
     with pytest.raises(RuntimeError, match="cuda"):
-        maml_driver.build(config_mod.Config())
+        driver.build(config_mod.Config())
     with pytest.raises(RuntimeError, match="cuda"):
-        maml_driver.run(config_mod.Config(), device="cuda")
+        driver.run(config_mod.Config(), device="cuda")
     assert not list(tmp_path.iterdir())  # refused before writing anything
     assert device_mod.resolve_device("cpu") == torch.device("cpu")
     dev, rest = device_mod.pop_device_flag(["--device=cpu", "--task.n_eval=2"])

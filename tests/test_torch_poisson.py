@@ -174,9 +174,9 @@ def test_loss_zero_for_constant_field_and_zero_source():
     assert float(dl["domain_loss"]) == 0.0
 
 
-def test_loss_without_vhd_is_not_ported():
-    """The name predates ops/operators.py: a field without .vhd now takes the
-    autodiff weighted-Laplacian branch, which equals the vhd branch
+def test_operator_branch_equals_vhd_branch():
+    """A field without .vhd takes the autodiff weighted-Laplacian branch
+    (ops/operators.py), which equals the vhd branch
     (tests/test_torch_operators.py holds it against the JAX package)."""
     pde = get_pde(TaskConfig())
     params = pde.sample_params(_gen(0))

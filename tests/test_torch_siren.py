@@ -280,10 +280,10 @@ def test_init_distribution_bounds():
     np.testing.assert_allclose(p["log_in_scale"].numpy(), np.log(0.1), rtol=1e-6)
 
 
-def test_compute_dtype_is_not_ported():
-    """The name predates the port of compute_dtype: a bf16 config now runs
-    the mixed chain (tests/test_torch_mixed_precision.py holds it against
-    the JAX package) and returns f32 values near the f32 chain's."""
+def test_bf16_config_runs_near_f32():
+    """A bf16 config runs the mixed chain (tests/test_torch_mixed_precision.py
+    holds it against the JAX package) and returns f32 values near the f32
+    chain's."""
     _, t_field, _, p = _pair(dict(compute_dtype="bfloat16"))
     _, t_f32, _, _ = _pair(dict())
     x = torch.tensor(_points(64))
