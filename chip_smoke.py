@@ -8,7 +8,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
   1 build     nvcc builds csrc/siren_fused.cu for sm_90a (or finds it built),
               with ptxas's register and spill report
   2 kernel    siren_fused against its plain PyTorch version on the card, max
-              |diff| <= 1e-5 on thirteen cases: the four configs of
+              |diff| <= 1e-5 on fifteen cases: the four configs of
               tests/test_pallas_siren.py, one task at the main path's shape
               and at 2^20 points, 8 tasks x 1024 points in one launch with
               per-task and with shared weights, 8 layers at width 128 (weights
@@ -17,7 +17,10 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               blocks, so that blocks cross task boundaries: 8 x 2^14 at 3x64
               (resident weights reloaded) and 3 x 2^15 at 8 layers of 128
               (the streaming path across items and tasks), and LEAP's
-              validation, 8 x 4096 at 5x64 with per-task weights; for the timed
+              validation, 8 x 4096 at 5x64 with per-task weights, and
+              TD-Burgers' deployments, 8 x 1008 points (not a multiple of the
+              64-point tile) at bm7_5's 8x64 and at ldb3_2's 10x128 (weights
+              streamed), per-task weights; for the timed
               cases, CUDA-event times (median of 20 after 3 warm-ups) of the
               kernel alone on weights packed beforehand and of the wrapper
               with its packing, the kernel's device time under torch.profiler
@@ -74,8 +77,9 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               one kernel launch per validation call; then a run() that
               resumes from it in the same out_dir must solve nothing
  11 train_bench  cli/train_bench on bench.py's flagship config, bf16 as
-              bench.py runs it, then the f32 variant (4 timed blocks of 5
-              outer steps each), with the form of the bf16 products that ran
+              bench.py runs it, then the f32 variant (5 timed blocks of 2
+              outer steps each, one profiled block of 2; cuts in `reduced`),
+              with the form of the bf16 products that ran
  12 leap_parity  a tiny LEAP meta-training (2 layers of 32, bsize 4, 3
               inner steps, 128 points, 3 outer steps) on the card and on the
               CPU on the same host draws, TF32 off: params within 1e-4 of
@@ -103,6 +107,31 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               nothing; then two unprofiled outer steps (steps/s, draw s a
               step, peak memory) and one under torch.profiler (launches,
               device-busy ms, idle share)
+ 16 burgers_gt  the FV ground truth of bm7_5's 8 deployment tasks (resolution
+              512, 201 output times, 7,400 SSP-RK3 steps) in one batched solve
+              on the card (one output segment a CUDA graph, held equal to the
+              eager loop bit for bit at resolution 128) and on the CPU:
+              u_grids within 1e-5 of the grid's largest |u|; seconds, and one
+              solve under torch.profiler (kernels, device busy, idle share);
+              then one FEM task (resolution 64, 11 output times) on both,
+              within 1e-4, with its Newton and Krylov counts
+ 17 burgers_parity  train_parity on bm7_5's task family (TD-Burgers)
+ 18 burgers_deploy  cli/deploy_bench --algo=maml on a copy of
+              results_burgers_maml/bm7_5 (8x64, best checkpoint, 8 fresh
+              tasks, k = 0, 1, 2, 5, FV ground truth at 512 through
+              gt_cache_torch/): 16 launches, the k = 5 median below k = 0 and
+              within 3x of the JAX package's CPU median
+ 19 burgers_train  cli/maml_pde on a copy of bm7_5's config at its full width,
+              resumed from its checkpoint_step_500001.pickle with both Adam
+              states: 10 outer steps (cuts in `reduced`), validation with the
+              per-timestep error, val_rel_err below 1e-2, 201 finite
+              per-timestep entries, one launch per validation call, the final
+              checkpoint's keys, a resumed run() that solves nothing; then two
+              unprofiled steps and one profiled
+ 20 leap_burgers_deploy  cli/deploy_bench --algo=leap on a copy of
+              results_burgers_leap/ldb3_2 (10x128, weights streamed through
+              shared memory): k = 0, 5, 20, 80, 16 launches, the k = 80 median
+              below k = 0 and within 3x of the JAX package's CPU median
 Then a JSON line with every kernel's numbers (with the training and LEAP
 paths' launches), one with the training numbers and the total seconds, and
 last the ok line. A failed check raises: the exit code is then not 0. A
@@ -137,7 +166,8 @@ from metapde_tpu_torch.interop import params_from_numpy
 from metapde_tpu_torch.models import make_field
 from metapde_tpu_torch.ops import _build, siren_fused
 from metapde_tpu_torch.pdes import get_pde
-from metapde_tpu_torch.solvers import fem_poisson, multigrid, newton
+from metapde_tpu_torch.pdes.burgers_formulations import default as burgers_default
+from metapde_tpu_torch.solvers import fem_poisson, fv_burgers, multigrid, newton
 from metapde_tpu_torch.train import checkpoints, leap_driver, loop, maml_driver, optimizers
 from metapde_tpu_torch.utils.trees import tree_leaves, tree_map
 
@@ -191,6 +221,31 @@ LEAP_ADAM_KS = (0, 50, 200)
 LEAP_OVERRIDES = {"train.viz_every": 0, "model.use_pallas_inference": "true"}
 LEAP_TRAIN_CUTS = {"train.outer_steps": 2, "train.steps_per_call": 2, "train.val_every": 2,
                    "train.checkpoint_every": 2, "task.n_eval": 1}
+# TD-Burgers: the committed MAML run (8x64) and LEAP run (10x128)
+BURGERS_RUN = REPO / "results_burgers_maml" / "bm7_5"
+BURGERS_CKPT = BURGERS_RUN / "checkpoint_step_500001.pickle"
+LDB_RUN = REPO / "results_burgers_leap" / "ldb3_2"
+LDB_CKPT = LDB_RUN / "checkpoint_step_40000.pickle"
+# Median val_rel_err from the JAX package's deploy_bench on the CPU, on a
+# copy of each run with its own config (FV ground truth at resolution 512,
+# 201 output times), at the largest k (commands and output in PERF.md):
+#   python -m metapde_tpu.cli.deploy_bench --algo=maml --from_run=<copy of bm7_5> \
+#     --model.use_pallas_inference=true --task.n_eval=8 --inner-steps-list=0,1,2,5 \
+#     --checkpoint=best
+JAX_CPU_BURGERS_K5_MEDIAN = 0.0001788014778867364
+#   python -m metapde_tpu.cli.deploy_bench --algo=leap --from_run=<copy of ldb3_2> \
+#     --model.use_pallas_inference=true --task.n_eval=8 --inner-steps-list=0,5,20,80
+JAX_CPU_LDB_K80_MEDIAN = 0.0027619556058198214
+LDB_KS = (0, 5, 20, 80)
+# card against CPU, of the grid's largest |u|: the FV scheme is elementwise
+# with no reductions; the FEM stops inside its Newton tolerance
+FV_TOL = 1e-5
+FEM_TOL = 1e-4
+BURGERS_OVERRIDES = {"train.viz_every": 0, "model.use_pallas_inference": "true"}
+# resumed at bm7_5's step 500001: 10 more outer steps in blocks ending on
+# multiples of 5 (3, 5, 2), validation at 500005 and 500010 on 2 eval tasks
+BURGERS_TRAIN_CUTS = {"train.outer_steps": 500012, "train.steps_per_call": 5,
+                      "train.val_every": 5, "train.log_every": 5, "task.n_eval": 2}
 # H100 SXM published peaks (dense, at the 700 W limit): TF32 on the tensor
 # cores, f32 outside them, and HBM bandwidth. The SFU returns 16 sines per
 # clock per SM where the CUDA cores do 128 f32 FMAs (2 flops each): the CUDA
@@ -319,10 +374,15 @@ KERNEL_CASES = [  # (name, FieldConfig overrides, tasks, points, weights)
     ("wide_deep_tasks", dict(num_layers=8, layer_size=128), 3, 1 << 15, "per_task"),
     # LEAP's validation: 8 tasks x 4096 points at lp2_4's 5x64, adapted weights
     ("leap_path", dict(num_layers=5), 8, 4096, "per_task"),
+    # TD-Burgers deployment: 8 tasks x 1008 points (1024 // 63 * 63, not a
+    # multiple of the 64-point tile), bm7_5's 8x64 and ldb3_2's 10x128
+    # (weights streamed: they exceed shared memory)
+    ("burgers_path", dict(num_layers=8), 8, 1008, "per_task"),
+    ("ldb3_path", dict(num_layers=10, layer_size=128), 8, 1008, "per_task"),
 ]
 CROSSING = ("tasks_cross", "wide_deep_tasks")
 TIMED = ("main_path", "main_path_2pow20", "main_path_batched", "main_path_shared",
-         "tasks_cross", "leap_path")
+         "tasks_cross", "leap_path", "burgers_path", "ldb3_path")
 # csrc/siren_fused.cu: points per (task, tile) item, and the most blocks of
 # its 256 threads an SM holds (2048 threads), so the most its persistent
 # grid can have per SM
@@ -402,13 +462,19 @@ def _kernel_cases():
     return results
 
 
-def _deploy(tmp, args):
-    """deploy_bench.main on a copy of the run dir under `tmp` (nothing is
-    written into the repository)."""
-    run_dir = Path(tmp) / RUN_DIR.name
+def _run_copy(tmp, run, files):
+    """A copy of `files` of the run dir `run` under `tmp`: the CLIs write
+    into a run dir, so nothing is written into the repository."""
+    run_dir = Path(tmp) / run.name
     run_dir.mkdir(exist_ok=True)
-    for f in ("checkpoint_best.pickle", "config.json"):
-        shutil.copy(RUN_DIR / f, run_dir / f)
+    for f in files:
+        shutil.copy(run / f, run_dir / f)
+    return run_dir
+
+
+def _deploy(tmp, args):
+    """deploy_bench.main on a copy of the run dir under `tmp`."""
+    run_dir = _run_copy(tmp, RUN_DIR, ("checkpoint_best.pickle", "config.json"))
     return deploy_bench.main(["--algo=maml", f"--train.load_model_from_expt={run_dir}",
                               "--model.use_pallas_inference=true",
                               "--checkpoint=best", *args])
@@ -518,16 +584,22 @@ def phase_deploy_mg():
     return launches, bf16_launches
 
 
-def _solve_counted(task, device):
-    """One resolution-32 solve: (ground truth, seconds, Newton steps,
+def _timed(fn, device):
+    """(fn(), its seconds between two barriers of `device`)."""
+    loop.device_barrier(torch.device(device))
+    t0 = time.perf_counter()
+    out = fn()
+    loop.device_barrier(torch.device(device))
+    return out, time.perf_counter() - t0
+
+
+def _solve_counted(solve, task, device):
+    """solve(task on `device`): (ground truth, seconds, Newton steps,
     BiCGStab iterations)."""
     task = tuple(a.to(device) for a in task)
     newton.bicgstab.iterations, newton.newton_krylov.steps = 0, 0
-    loop.device_barrier(torch.device(device))
-    t0 = time.perf_counter()
-    gt = fem_poisson.solve(task, resolution=MG_RES)
-    loop.device_barrier(torch.device(device))
-    return gt, time.perf_counter() - t0, newton.newton_krylov.steps, newton.bicgstab.iterations
+    gt, secs = _timed(lambda: solve(task), device)
+    return gt, secs, newton.newton_krylov.steps, newton.bicgstab.iterations
 
 
 def phase_ground_truth_mg():
@@ -538,9 +610,12 @@ def phase_ground_truth_mg():
     gen = torch.Generator().manual_seed(Config().seed + 7919)
     tasks = [pde.sample_params(gen) for _ in range(2)]
     rows = []
+    def solve(task):
+        return fem_poisson.solve(task, resolution=MG_RES)
+
     for task in tasks:
-        g, g_s, g_steps, g_iters = _solve_counted(task, "cuda")
-        c, c_s, c_steps, c_iters = _solve_counted(task, "cpu")
+        g, g_s, g_steps, g_iters = _solve_counted(solve, task, "cuda")
+        c, c_s, c_steps, c_iters = _solve_counted(solve, task, "cpu")
         scale = float(c.u_grid.abs().max())
         err = float((g.u_grid.cpu() - c.u_grid).abs().max()) / scale
         rows.append({"card_s": g_s, "cpu_s": c_s, "newton_steps": g_steps,
@@ -573,15 +648,19 @@ def phase_ground_truth_mg():
 def _profile(fn):
     """fn() once under torch.profiler, tracing the card only (a solve makes
     hundreds of thousands of host ops): wall ms, device-busy ms (the union
-    of the CUDA events), idle share and the count of device launches."""
+    of the CUDA events), idle share and the count of device launches. The
+    events are read from the profiler's raw results: building its Python
+    event list takes ~1.5 ms a thousand events (75 s for an FV solve)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = _busy_us((e.time_range.start, e.time_range.end) for e in events)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    busy_us = _busy_us((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+                       for e in events)
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "idle_share": 1.0 - busy_us / wall_us, "launches": len(events)}
 
@@ -704,9 +783,7 @@ def _gt_log(run):
 def phase_train():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        src = Path(tmp) / RUN_DIR.name
-        src.mkdir()
-        shutil.copy(RUN_DIR / "config.json", src / "config.json")
+        src = _run_copy(tmp, RUN_DIR, ("config.json",))
         out = Path(tmp) / "out"
         args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in TRAIN_CUTS.items()),
                 "--model.use_pallas_inference=true", f"--train.out_dir={out}"]
@@ -768,6 +845,9 @@ def phase_train():
             "resumed_gt_solved_read": resumed}
 
 
+# 5 timed blocks of 2 outer steps and one profiled block of 2, so that the
+# whole run, TD-Burgers phases included, stays under 700 s
+BENCH_CUTS = {"block": 2, "blocks": 5}
 BENCH_KEYS = ("outer_steps_per_s", "residual_pt_evals_per_s", "draw_s_per_step",
               "device_busy_ms_per_step", "device_idle_share", "kernels_per_step",
               "max_memory_allocated_bytes", "bf16_gemm", "nvidia_smi", "config")
@@ -777,12 +857,13 @@ def phase_train_bench():
     """bench.py's flagship as bench.py runs it (bf16), then the f32 variant,
     with what the card's torch offers for bf16 GEMMs (bf16_gemm_support)."""
     t0 = time.perf_counter()
-    # blocks of 5 steps: the profiled block's trace (~10,000 kernels and
+    # blocks of 2 steps: the profiled block's trace (~10,000 kernels and
     # ~60,000 host ops a step) takes longer to read than to run
-    depth = ["--block=5", "--blocks=4"]
+    depth = [f"--{k}={v}" for k, v in BENCH_CUTS.items()]
     rows = {"bf16": train_bench.main(depth),
             "f32": train_bench.main(depth + ["--model.compute_dtype=null"])}
-    emit("train_bench", t0, bf16_gemm_support=rows["bf16"]["bf16_gemm_support"],
+    emit("train_bench", t0, reduced=BENCH_CUTS,
+         bf16_gemm_support=rows["bf16"]["bf16_gemm_support"],
          runs={k: {b: r[b] for b in BENCH_KEYS} for k, r in rows.items()})
     return rows
 
@@ -858,10 +939,7 @@ def _leap_deploy_checked(tmp, name, ks, jax_median, extra=()):
     """cli/deploy_bench --algo=leap on a copy of lp2_4 under `tmp`, with its
     config (4096 inner and validation points, ground truth at resolution
     32)."""
-    run_dir = Path(tmp) / LEAP_RUN.name
-    run_dir.mkdir(exist_ok=True)
-    for f in (LEAP_CKPT.name, "config.json"):
-        shutil.copy(LEAP_RUN / f, run_dir / f)
+    run_dir = _run_copy(tmp, LEAP_RUN, (LEAP_CKPT.name, "config.json"))
     overrides = [f"--{k}={v}" for k, v in LEAP_OVERRIDES.items()]
     cfg = parse_overrides(load_run_config(str(LEAP_RUN)), overrides)
     return _deploy_checked(
@@ -888,10 +966,11 @@ def phase_leap_deploy():
     return launches, adam_launches
 
 
-def _leap_step_numbers(cfg, params, opt_state):
-    """Two unprofiled outer steps at cfg's width (host draw timed apart),
-    then one step under torch.profiler tracing the card."""
-    c = leap_driver.build(cfg, "cuda")
+def _step_numbers(cfg, c, state, read):
+    """Two unprofiled outer steps of the driver build `c` at cfg's width
+    from `state` (step_core's state arguments; host draw timed apart), then
+    one step under torch.profiler tracing the card. read(out) -> (the new
+    state, the host read the training loop makes)."""
     gen = torch.Generator().manual_seed(cfg.seed + 23)
     torch.cuda.reset_peak_memory_stats()
     draw_s, step_s = [], []
@@ -899,15 +978,15 @@ def _leap_step_numbers(cfg, params, opt_state):
         t0 = time.perf_counter()
         batch = c["draw_step_inputs"](gen)
         t1 = time.perf_counter()
-        params, opt_state, losses, _ = c["step_core"](batch, params, opt_state)
-        float(losses[:, -1].mean())  # the host read the training loop makes
+        state, host = read(c["step_core"](batch, *state))
+        float(host)
         t2 = time.perf_counter()
         draw_s.append(t1 - t0)
         step_s.append(t2 - t0)
     peak = torch.cuda.max_memory_allocated()
     batch = c["draw_step_inputs"](gen)
     torch.cuda.synchronize()
-    prof = _profile(lambda: c["step_core"](batch, params, opt_state))
+    prof = _profile(lambda: c["step_core"](batch, *state))
     return {"outer_steps_per_s": 1.0 / statistics.mean(step_s),
             "step_s": step_s, "draw_s_per_step": statistics.mean(draw_s),
             "max_memory_allocated_bytes": peak,
@@ -921,9 +1000,7 @@ def _leap_step_numbers(cfg, params, opt_state):
 def phase_leap_train():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        src = Path(tmp) / LEAP_RUN.name
-        src.mkdir()
-        shutil.copy(LEAP_RUN / "config.json", src / "config.json")
+        src = _run_copy(tmp, LEAP_RUN, ("config.json",))
         out = Path(tmp) / "out"
         cuts = {**LEAP_TRAIN_CUTS, **LEAP_OVERRIDES}
         args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in cuts.items()),
@@ -969,8 +1046,10 @@ def phase_leap_train():
         raise AssertionError(f"ground truth at resolution {resolution}: (solved, read) "
                              f"{first} then {resumed} on resume")
     cfg = parse_overrides(load_run_config(str(LEAP_RUN)), ["--train.viz_every=0"])
-    bench = _leap_step_numbers(cfg, params_from_numpy(final["params"], "cuda"),
-                               params_from_numpy(final["torch_opt_state"], "cuda", dtype=None))
+    bench = _step_numbers(cfg, leap_driver.build(cfg, "cuda"),
+                          (params_from_numpy(final["params"], "cuda"),
+                           params_from_numpy(final["torch_opt_state"], "cuda", dtype=None)),
+                          lambda out: (out[:2], out[2][:, -1].mean()))
     emit("leap_train", t0, reduced=cuts, launches=launches, validations=len(recs),
          ground_truth_resolution=resolution, gt_solved_read=first,
          resumed_gt_solved_read=resumed, resumed_s=resumed_s,
@@ -984,6 +1063,214 @@ def phase_leap_train():
             "resumed_gt_solved_read": resumed}
 
 
+def _burgers_eval_tasks(run, n):
+    """deploy_bench's eval tasks of `run`'s config (host draws from seed +
+    7919), and its family."""
+    cfg = load_run_config(str(run))
+    pde = get_pde(cfg.task)
+    gen = torch.Generator().manual_seed(cfg.seed + 7919)
+    return cfg, pde, [pde.sample_params(gen) for _ in range(n)]
+
+
+def phase_burgers_gt():
+    """The FV ground truth of bm7_5's 8 deployment tasks (resolution 512,
+    201 output times) in one batched solve on the card and on the CPU, one
+    more under torch.profiler; then one FEM task (resolution 64, 11 output
+    times) on both."""
+    t0 = time.perf_counter()
+    cfg, pde, tasks = _burgers_eval_tasks(BURGERS_RUN, 8)
+    res = cfg.solver.ground_truth_resolution
+
+    def solve(device):
+        return pde.solve_batched([tuple(a.to(device) for a in t) for t in tasks],
+                                 resolution=res)
+
+    # the CUDA graph of an output segment against the eager loop, on the
+    # card: the same kernels, so the same bits (at resolution 128, 1,600 RK
+    # steps: the eager loop is host-bound)
+    dom = cfg.task.domain
+    kw = dict(resolution=128, num_tsteps=cfg.task.num_tsteps,
+              max_reynolds=cfg.task.max_reynolds, ic_fn=burgers_default.ic_fn,
+              xmin=dom.xmin, xmax=dom.xmax, tmax=dom.tmax)
+    on_card = [tuple(a.to("cuda") for a in t) for t in tasks]
+    graphed, graph_s = _timed(lambda: fv_burgers.solve_batched(on_card, **kw), "cuda")
+    eager, eager_s = _timed(lambda: fv_burgers.solve_batched(on_card, cuda_graph=False, **kw),
+                            "cuda")
+    if not all(torch.equal(g.u_grid, e.u_grid) for g, e in zip(graphed, eager)):
+        raise AssertionError("the CUDA graph's FV solve differs from the eager loop's")
+    card, card_s = _timed(lambda: solve("cuda"), "cuda")
+    cpu, cpu_s = _timed(lambda: solve("cpu"), "cpu")
+    scale = max(float(c.u_grid.abs().max()) for c in cpu)
+    err = max(float((g.u_grid.cpu() - c.u_grid).abs().max()) for g, c in zip(card, cpu)) / scale
+    if not (all(bool(torch.isfinite(g.u_grid).all()) for g in card) and err <= FV_TOL):
+        raise AssertionError(f"FV u_grids: card vs CPU {err} of the grid's max (> {FV_TOL}), "
+                             "or not finite")
+    steps, per_seg = fv_burgers.n_substeps(res, dom.xmax - dom.xmin, dom.tmax,
+                                           cfg.task.max_reynolds, 0.4, 5.0, cfg.task.num_tsteps)
+    prof = _profile(lambda: solve("cuda"))
+    fem_cfg = parse_overrides(cfg, ["--task.burgers_gt_solver=fem", "--task.num_tsteps=11"])
+    fem_pde = get_pde(fem_cfg.task)
+    fem = {device: _solve_counted(lambda t: fem_pde.solve(t, resolution=64), tasks[0], device)
+           for device in ("cuda", "cpu")}
+    fem_scale = float(fem["cpu"][0].u_grid.abs().max())
+    fem_err = float((fem["cuda"][0].u_grid.cpu() - fem["cpu"][0].u_grid).abs().max()) / fem_scale
+    if not (bool(torch.isfinite(fem["cuda"][0].u_grid).all()) and fem_err <= FEM_TOL):
+        raise AssertionError(f"FEM u_grid: card vs CPU {fem_err} of the grid's max "
+                             f"(> {FEM_TOL}), or not finite")
+    out = {"tasks": len(tasks), "resolution": res, "num_tsteps": cfg.task.num_tsteps,
+           "rk_steps": steps, "rk_steps_per_segment": per_seg, "tol": FV_TOL, "rel_err": err,
+           "card_s": card_s, "card_s_per_task": card_s / len(tasks), "cpu_s": cpu_s,
+           "graph_vs_eager_res128": {"equal": True, "graph_s": graph_s, "eager_s": eager_s},
+           "kernels": prof["launches"], "kernels_per_rk_step": prof["launches"] / steps,
+           "graph_replays": cfg.task.num_tsteps - 1,
+           "device_busy_ms": prof["device_busy_ms"], "wall_ms": prof["wall_ms"],
+           "idle_share": prof["idle_share"], "reynolds": float(tasks[0][0][0]),
+           "fem": {"resolution": 64, "num_tsteps": 11, "tol": FEM_TOL, "rel_err": fem_err,
+                   "card_s": fem["cuda"][1], "cpu_s": fem["cpu"][1],
+                   "newton_steps": fem["cuda"][2], "krylov_iters": fem["cuda"][3],
+                   "cpu_newton_steps": fem["cpu"][2], "cpu_krylov_iters": fem["cpu"][3]}}
+    emit("burgers_gt", t0, **out)
+    return out
+
+
+def phase_burgers_parity():
+    """A tiny MAML meta-training on bm7_5's task family (2 layers of 32,
+    bsize 4, 2 inner steps, 128 points, 3 outer steps) on the card and on
+    the CPU on the same host draws, TF32 off."""
+    t0 = time.perf_counter()
+    cfg = parse_overrides(load_run_config(str(BURGERS_RUN)), [
+        "--model.num_layers=2", "--model.layer_size=32", "--maml.bsize=4",
+        "--maml.inner_steps=2", "--task.inner_points=128", "--task.outer_points=128"])
+    c = maml_driver.build(cfg, "cpu")
+    state = (c["init_params"], c["inner_lrs"], c["outer_opt"].init(c["init_params"]),
+             c["lr_opt"].init(c["inner_lrs"]))
+    rows, t_card, t_cpu = _train_both(cfg, 3, state)
+    emit("burgers_parity", t0, leaf_tol=TRAIN_LEAF_TOL, loss_rtol=TRAIN_LOSS_RTOL, steps=rows,
+         card_s=t_card, cpu_s=t_cpu)
+
+
+def _plan_of(run):
+    """The kernel's launch plan at `run`'s width (from its checkpoint's
+    shapes: num_layers hidden layers and the output layer)."""
+    cfg = load_run_config(str(run))
+    dims = (2, cfg.model.layer_size, cfg.model.num_layers, 1)
+    return siren_fused.launch_plan(dims, torch.device("cuda"))._asdict()
+
+
+def phase_burgers_deploy():
+    """cli/deploy_bench --algo=maml on a copy of bm7_5 with its config: its
+    best checkpoint, 8 fresh tasks, k = 0, 1, 2, 5, FV ground truth at
+    resolution 512 through gt_cache_torch/."""
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = _run_copy(tmp, BURGERS_RUN, ("checkpoint_best.pickle", "config.json"))
+        return _deploy_checked(
+            tmp, "burgers_deploy", lambda: deploy_bench.main([
+                "--algo=maml", f"--from_run={run_dir}", "--model.use_pallas_inference=true",
+                "--checkpoint=best", "--task.n_eval=8",
+                "--inner-steps-list=" + ",".join(map(str, DEPLOY_KS)),
+                f"--repeats={DEPLOY_REPEATS}"]),
+            DEPLOY_KS, JAX_CPU_BURGERS_K5_MEDIAN, plan=_plan_of(BURGERS_RUN))[0]
+
+
+def phase_leap_burgers_deploy():
+    """cli/deploy_bench --algo=leap on a copy of ldb3_2 (10x128, 2048 inner
+    and 1024 validation points, FV at resolution 512): k = 0, 5, 20, 80,
+    every task in one batched rollout and one launch, the weights streamed."""
+    plan = _plan_of(LDB_RUN)
+    if plan["resident"]:
+        raise AssertionError(f"ldb3_2's 10x128 weights planned resident: {plan}")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = _run_copy(tmp, LDB_RUN, (LDB_CKPT.name, "config.json"))
+        return _deploy_checked(
+            tmp, "leap_burgers_deploy", lambda: deploy_bench.main([
+                "--algo=leap", f"--from_run={run_dir}", "--model.use_pallas_inference=true",
+                "--task.n_eval=8", "--inner-steps-list=" + ",".join(map(str, LDB_KS)),
+                f"--repeats={DEPLOY_REPEATS}"]),
+            LDB_KS, JAX_CPU_LDB_K80_MEDIAN, plan=plan)[0]
+
+
+def phase_burgers_train():
+    """cli/maml_pde on a copy of bm7_5's config.json at its full width,
+    resumed from its checkpoint_step_500001.pickle with both Adam states:
+    10 outer steps, validation through the kernel against the FV ground
+    truth (per-timestep error included), a final checkpoint; then a
+    resumed run() that must solve nothing, and the step's numbers."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = _run_copy(tmp, BURGERS_RUN, ("config.json", BURGERS_CKPT.name))
+        out = Path(tmp) / "out"
+        cuts = {**BURGERS_TRAIN_CUTS, **BURGERS_OVERRIDES}
+        args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in cuts.items()),
+                f"--train.out_dir={out}"]
+        siren_fused.siren_apply_fused_batched.launches = 0
+        maml_pde.main(args + ["--train.expt_name=smoke"])
+        torch.cuda.synchronize()
+        launches = siren_fused.siren_apply_fused_batched.launches
+        run = out / "smoke"
+        last = BURGERS_TRAIN_CUTS["train.outer_steps"]
+        for f in ("log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
+                  f"checkpoint_step_{last}.pickle"):
+            if not (run / f).exists():
+                raise AssertionError(f"the Burgers training run wrote no {f}")
+        log_text = (run / "log.txt").read_text()
+        if "resuming optimizer state at step 500002" not in log_text:
+            raise AssertionError("the run did not resume bm7_5's optimizer states")
+        recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+        jax_keys = sorted(json.loads((BURGERS_RUN / "metrics.jsonl").read_text()
+                                     .splitlines()[0]))
+        if not recs or sorted(recs[0]) != jax_keys:
+            raise AssertionError(f"metrics.jsonl keys {sorted(recs[0]) if recs else []} != "
+                                 f"the JAX run's {jax_keys}")
+        if [r["step"] for r in recs] != [500004, 500009]:
+            raise AssertionError(f"validation records at {[r['step'] for r in recs]}")
+        nt = load_run_config(str(BURGERS_RUN)).task.num_tsteps
+        for r in recs:
+            for k in ("meta_loss", "val_meta_loss", "val_rel_err", "val_mse"):
+                if not math.isfinite(r[k]):
+                    raise AssertionError(f"step {r['step']}: {k} = {r[k]}")
+            if not r["val_rel_err"] < 1e-2:
+                raise AssertionError(f"step {r['step']}: val_rel_err {r['val_rel_err']} >= 1e-2")
+            pts = r["per_time_step_error"]
+            if len(pts) != nt or not all(math.isfinite(v) for v in pts):
+                raise AssertionError(f"step {r['step']}: per_time_step_error has {len(pts)} "
+                                     f"entries (expected {nt} finite)")
+        if launches != len(recs):
+            raise AssertionError(f"the Burgers training path launched siren_fused {launches} "
+                                 f"times for {len(recs)} validation calls")
+        ckpt_keys = _check_final_checkpoint(run / f"checkpoint_step_{last}.pickle", BURGERS_CKPT)
+        first = _gt_log(run)
+        t1 = time.perf_counter()
+        maml_pde.main(args + ["--train.expt_name=resumed", f"--train.load_model_from_expt={run}",
+                              f"--train.outer_steps={last + 1}"])
+        resumed_s = time.perf_counter() - t1
+        resumed = _gt_log(out / "resumed")
+        final = checkpoints.load_checkpoint(str(run / f"checkpoint_step_{last}.pickle"))
+    n_eval = BURGERS_TRAIN_CUTS["task.n_eval"]
+    if first != (n_eval, 0) or resumed != (0, n_eval):
+        raise AssertionError(f"ground truth (solved, read) {first} then {resumed} on resume")
+    cfg = parse_overrides(load_run_config(str(BURGERS_RUN)), ["--train.viz_every=0"])
+    state = (params_from_numpy(final["params"], "cuda"),
+             params_from_numpy(final["inner_lrs"], "cuda"),
+             *(params_from_numpy(final[f"torch_{k}"], "cuda", dtype=None)
+               for k in ("opt_state", "lr_opt_state")))
+    bench = _step_numbers(cfg, maml_driver.build(cfg, "cuda"), state,
+                          lambda o: (o[:4], o[5][0].mean()))
+    step_s = statistics.mean(r["step_time"] for r in recs)
+    emit("burgers_train", t0, reduced=cuts, launches=launches, validations=len(recs),
+         gt_solved_read=first, resumed_gt_solved_read=resumed, resumed_s=resumed_s,
+         meta_loss=[r["meta_loss"] for r in recs],
+         val_rel_err=[r["val_rel_err"] for r in recs],
+         val_rel_err_median=[r["val_rel_err_median"] for r in recs],
+         per_time_step_error_max=[max(r["per_time_step_error"]) for r in recs],
+         deployment_time=[r["deployment_time"] for r in recs],
+         step_time=[r["step_time"] for r in recs], steps_per_s=1.0 / step_s,
+         checkpoint_keys=ckpt_keys, bench=bench)
+    return {"launches": launches, "steps_per_s": 1.0 / step_s, **bench,
+            "deployment_time": recs[-1]["deployment_time"],
+            "val_rel_err": recs[-1]["val_rel_err"], "gt_solved_read": first,
+            "resumed_gt_solved_read": resumed}
+
+
 PHASES = {
     "kernel": phase_kernel, "parity": phase_parity, "deploy": phase_deploy,
     "ground_truth_mg": phase_ground_truth_mg, "deploy_mg": phase_deploy_mg,
@@ -991,7 +1278,9 @@ PHASES = {
     "train_resume_jax": phase_train_resume_jax, "train": phase_train,
     "train_bench": phase_train_bench, "leap_parity": phase_leap_parity,
     "leap_resume_jax": phase_leap_resume_jax, "leap_deploy": phase_leap_deploy,
-    "leap_train": phase_leap_train,
+    "leap_train": phase_leap_train, "burgers_gt": phase_burgers_gt,
+    "burgers_parity": phase_burgers_parity, "burgers_deploy": phase_burgers_deploy,
+    "burgers_train": phase_burgers_train, "leap_burgers_deploy": phase_leap_burgers_deploy,
 }
 
 
@@ -1016,6 +1305,11 @@ def main(argv):
     phase_leap_resume_jax()
     leap_deploy_launches, leap_deploy_adam_launches = phase_leap_deploy()
     leap_train = phase_leap_train()
+    burgers_gt = phase_burgers_gt()
+    phase_burgers_parity()
+    burgers_deploy_launches = phase_burgers_deploy()
+    burgers_train = phase_burgers_train()
+    leap_burgers_deploy_launches = phase_leap_burgers_deploy()
     main_row, big = kern["main_path_batched"], kern["main_path_2pow20"]
     timing_keys = ("ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
                    "bound_f32_ms")
@@ -1047,12 +1341,20 @@ def main(argv):
         "at_leap_shape": {k: kern["leap_path"][k] for k in (
             "tasks", "n", "max_abs_err", *timing_keys, "resident", "smem_bytes",
             "blocks_per_sm", "n_sm")},
+        "burgers_deploy_launches": burgers_deploy_launches,
+        "burgers_train_launches": burgers_train["launches"],
+        "leap_burgers_deploy_launches": leap_burgers_deploy_launches,
+        **{f"at_{case.split('_')[0]}_shape": {k: kern[case][k] for k in (
+            "tasks", "n", "max_abs_err", *timing_keys, "resident", "smem_bytes",
+            "blocks_per_sm", "n_sm")} for case in ("burgers_path", "ldb3_path")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"training": {"train": train,
                                    "train_bench": {k: {b: r[b] for b in BENCH_KEYS}
                                                    for k, r in bench.items()},
-                                   "leap_train": leap_train},
+                                   "leap_train": leap_train,
+                                   "burgers_train": burgers_train,
+                                   "burgers_gt": burgers_gt},
                       "ground_truth_mg": gt_mg,
                       "total_s": time.perf_counter() - T_START}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,13 @@ the FEM ground truth:
         --from_run=results_poisson_leap/lp2_4 --model.use_pallas_inference=true \
         --task.n_eval=8 --inner-steps-list=0,5,20,60
 
-(resolution 32 is the one that run trained with; from 32 up the FEM solve
-takes the multigrid preconditioner). Runs on CUDA unless given
+    python -m metapde_tpu_torch.cli.deploy_bench --algo=maml \
+        --from_run=results_burgers_maml/bm7_5 --model.use_pallas_inference=true \
+        --task.n_eval=8 --inner-steps-list=0,1,2,5 --checkpoint=best
+
+(resolution 32 is the one p30k_f32_s1 trained with; from 32 up the FEM
+solve takes the multigrid preconditioner; a td_burgers run's ground truth
+is its FV solve at its own resolution, all eval tasks in one time loop). Runs on CUDA unless given
 --device=cpu. Prints one JSON row per k, with the JAX CLI's keys plus the
 device, and writes them to
 deploy_bench_torch[_<deploy.optimizer>][_<compute_dtype>]_n<n_eval>[_best].jsonl
@@ -46,7 +51,7 @@ from ..interop import params_from_numpy
 from ..train import checkpoints as ckpt
 from ..train import leap_driver, maml_driver
 from ..train.gt_cache import task_cache_extra
-from ..train.loop import device_barrier
+from ..train.loop import device_barrier, validation_num_tsteps
 from ..train.multistart import make_score_fn
 from ..train.validation import get_ground_truth, make_validation_fn, task_generator
 from ..utils.trees import tree_map, tree_stack
@@ -134,7 +139,8 @@ def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
     rows = []
     for k in inner_steps_list:
         val_fn = make_validation_fn(
-            pde, partial(c["make_coef_func_batched"], inner_steps=int(k)), cfg.task.n_eval)
+            pde, partial(c["make_coef_func_batched"], inner_steps=int(k)), cfg.task.n_eval,
+            num_tsteps=validation_num_tsteps(cfg.task))
         val = val_fn(model, bundle.gt_params, bundle.coords, bundle.gt_vals)
         device_barrier(device)  # warm-up
 

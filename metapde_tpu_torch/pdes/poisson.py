@@ -8,10 +8,10 @@ with Omega the star domain r(theta) = 1 + c1 cos(4 theta) + c2 cos(8 theta),
 f a sum of two Gaussian bumps, and g a low-order Fourier series in theta.
 
 Task distribution semantics kept from the JAX package:
-- a factor switched off by ``vary_*`` is frozen: it is drawn from a fresh
-  generator seeded 0, so every task shares it (the JAX package zeroes that
-  factor's PRNG key); ``fixed_num_pdes`` draws every task from one generator
-  seeded ``task.seed``.
+- a factor switched off by ``vary_*`` is frozen at the JAX package's draw
+  from the all-zero PRNG key (pdes/frozen.py, bit for bit), so every task
+  shares it, as in the JAX package; ``fixed_num_pdes`` draws every task from
+  one generator seeded ``task.seed``.
 - domain points: 3n uniform box candidates, then n draws among those inside
   the star. As in the JAX package (``replace=not sample_with_replacement``),
   the default ``sample_with_replacement=False`` draws WITH replacement and
@@ -36,6 +36,7 @@ import torch
 from ..config import TaskConfig
 from ..ops.operators import vmap_weighted_laplacian
 from ..solvers import fem_poisson
+from . import frozen
 from .registry import PdeDef
 
 
@@ -86,13 +87,12 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
         if cfg.fixed_num_pdes is not None:
             gen = _fresh(dev, cfg.seed)
 
-        def factor_gen(vary):
-            return gen if vary else _fresh(dev, 0)
-
-        source_params = torch.randn((2, 3), generator=factor_gen(cfg.vary_source),
-                                    device=dev)
-        bc_params = cfg.bc_scale * _uniform(factor_gen(cfg.vary_bc), 5, -1.0, 1.0)
-        geo_params = _uniform(factor_gen(cfg.vary_geometry), 2, -0.2, 0.2)
+        source_params = (torch.randn((2, 3), generator=gen, device=dev) if cfg.vary_source
+                         else frozen.normal((2, 3), dev))
+        bc_params = cfg.bc_scale * (_uniform(gen, 5, -1.0, 1.0) if cfg.vary_bc
+                                    else frozen.uniform((5,), -1.0, 1.0, dev))
+        geo_params = (_uniform(gen, 2, -0.2, 0.2) if cfg.vary_geometry
+                      else frozen.uniform((2,), -0.2, 0.2, dev))
         return source_params, bc_params, geo_params
 
     # point samplers draw on the generator's device and return the points on

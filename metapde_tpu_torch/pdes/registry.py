@@ -28,14 +28,28 @@ class PdeDef(NamedTuple):
     solve_ref: Callable = None  # (params, resolution) -> float64 reference solve
     solve_hi: Callable = None   # (params, resolution) -> higher-order oracle
     evaluate_gt_hi: Callable = None  # evaluation matching solve_hi's order
+    # (params list, resolution) -> ground truths of several tasks in one solve
+    solve_batched: Callable = None
+
+
+def solve_many(pde, params_list, resolution):
+    """The ground truths of several tasks: one pde.solve_batched call when
+    the family has it, else one pde.solve each."""
+    if getattr(pde, "solve_batched", None) is not None:
+        return pde.solve_batched(params_list, resolution=resolution)
+    return [pde.solve(p, resolution=resolution) for p in params_list]
 
 
 def get_pde(cfg: TaskConfig) -> PdeDef:
-    """Build the PdeDef for cfg.pde. Only "poisson" is ported so far."""
+    """Build the PdeDef for cfg.pde. "poisson" and "td_burgers" are ported."""
     if cfg.pde == "poisson":
         from . import poisson
 
         return poisson.make_pde(cfg)
-    if cfg.pde in ("td_burgers", "hyper_elasticity", "steady_burgers", "poisson3d"):
+    if cfg.pde == "td_burgers":
+        from . import td_burgers
+
+        return td_burgers.make_pde(cfg)
+    if cfg.pde in ("hyper_elasticity", "steady_burgers", "poisson3d"):
         raise NotImplementedError(f"pde {cfg.pde!r} is not ported yet")
     raise ValueError(f"unrecognized pde: {cfg.pde!r}")

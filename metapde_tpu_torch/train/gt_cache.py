@@ -28,6 +28,8 @@ import zipfile
 import numpy as np
 import torch
 
+from ..pdes.registry import solve_many
+
 # TaskConfig fields that change what sample_params/solve produce for given
 # task params or seed (the JAX package's list, copied)
 _GT_TASK_FIELDS = (
@@ -95,25 +97,39 @@ class GroundTruthCache:
     def get_or_solve(self, pde, params, resolution: int, extra_hparams=None):
         """The cached ground truth of task `params` at `resolution`, on the
         params' device; solved with pde.solve and stored on a miss."""
-        path = self.path(pde, params, resolution, extra_hparams)
-        if os.path.exists(path):
-            try:
-                with np.load(path) as z:
-                    stored = {k: z[k] for k in z.files}
-                gt_type = _gt_type(str(stored.pop(_TYPE_KEY)))
-                device = params[0].device
-                gt = gt_type(**{k: torch.as_tensor(v, device=device) for k, v in stored.items()})
-            except (OSError, ValueError, EOFError, KeyError, TypeError, AttributeError,
-                    ImportError, zipfile.BadZipFile) as e:
-                print(f"gt_cache: corrupt entry {path} ({type(e).__name__}); "
-                      "deleting and re-solving", flush=True)
-                os.remove(path)
-            else:
-                self.hits += 1
-                return gt
-        gt = pde.solve(params, resolution=resolution)
-        self.solves += 1
-        arrays = {k: v.detach().cpu().numpy() for k, v in gt._asdict().items()}
-        arrays[_TYPE_KEY] = np.asarray(f"{type(gt).__module__}.{type(gt).__qualname__}")
-        _save_atomic(path, arrays)
-        return gt
+        return self.get_or_solve_many(pde, [params], resolution, extra_hparams)[0]
+
+    def get_or_solve_many(self, pde, params_list, resolution: int, extra_hparams=None):
+        """The ground truths of several tasks: the cached ones read, the
+        misses solved together by pde.solve_batched when the family has it
+        (else one pde.solve each), and stored one entry per task."""
+        paths = [self.path(pde, p, resolution, extra_hparams) for p in params_list]
+        gts = [self._read(path, p[0].device) for path, p in zip(paths, params_list)]
+        misses = [i for i, gt in enumerate(gts) if gt is None]
+        self.hits += len(gts) - len(misses)
+        if misses:
+            solved = solve_many(pde, [params_list[i] for i in misses], resolution)
+            for i, gt in zip(misses, solved):
+                self.solves += 1
+                arrays = {k: v.detach().cpu().numpy() for k, v in gt._asdict().items()}
+                arrays[_TYPE_KEY] = np.asarray(f"{type(gt).__module__}.{type(gt).__qualname__}")
+                _save_atomic(paths[i], arrays)
+                gts[i] = gt
+        return gts
+
+    def _read(self, path, device):
+        """The entry at `path` on `device`, or None (an unreadable entry is
+        deleted)."""
+        if not os.path.exists(path):
+            return None
+        try:
+            with np.load(path) as z:
+                stored = {k: z[k] for k in z.files}
+            gt_type = _gt_type(str(stored.pop(_TYPE_KEY)))
+            return gt_type(**{k: torch.as_tensor(v, device=device) for k, v in stored.items()})
+        except (OSError, ValueError, EOFError, KeyError, TypeError, AttributeError,
+                ImportError, zipfile.BadZipFile) as e:
+            print(f"gt_cache: corrupt entry {path} ({type(e).__name__}); "
+                  "deleting and re-solving", flush=True)
+            os.remove(path)
+            return None

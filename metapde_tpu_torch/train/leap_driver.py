@@ -32,9 +32,9 @@ resume from the port's or the JAX package's LEAP checkpoints (the JAX one's
 Adam state carries over). Its NaN abort reads the per-step meta-losses
 (the last column of the loss history) also for a block of one step, where
 the JAX driver reads the mean of the whole history: a NaN loss gives NaN
-params and so a NaN last loss. Not ported: a mesh, viz_every, branch_aware_val,
-profile_dir, non-Poisson PDEs and deploy.n_starts > 1; each raises
-NotImplementedError.
+params and so a NaN last loss. The families are poisson and td_burgers. Not
+ported: a mesh, viz_every, branch_aware_val, profile_dir, the other
+families and deploy.n_starts > 1; each raises NotImplementedError.
 """
 
 import torch

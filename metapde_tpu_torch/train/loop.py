@@ -73,9 +73,19 @@ def problem(cfg: Config):
     return pde, model_cfg, field, loss_fn, task_loss
 
 
+TRAINED_PDES = ("poisson", "td_burgers")
+
+
+def validation_num_tsteps(task_cfg):
+    """The per-timestep metric's time count: td_burgers' num_tsteps, else
+    None (the JAX drivers' and deploy_bench's rule)."""
+    return task_cfg.num_tsteps if task_cfg.pde == "td_burgers" else None
+
+
 def check_run_options(cfg: Config):
-    if cfg.task.pde != "poisson":
-        raise NotImplementedError(f"training pde {cfg.task.pde!r}: only poisson is ported")
+    if cfg.task.pde not in TRAINED_PDES:
+        raise NotImplementedError(f"training pde {cfg.task.pde!r}: only {TRAINED_PDES} "
+                                  "are ported")
     if cfg.train.viz_every > 0 and cfg.train.expt_name is not None:
         raise NotImplementedError("viz_every: the ground-truth plots (train/viz.py) are "
                                   "not ported yet; pass --train.viz_every=0")
@@ -219,7 +229,7 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
     bundle = eval_ground_truth(cfg, c["pde"], eval_seed, device, log)
     validation_fn = make_validation_fn(
         c["pde"], partial(c["make_coef_func_batched"], inner_steps=learner.inner_steps),
-        cfg.task.n_eval)
+        cfg.task.n_eval, num_tsteps=validation_num_tsteps(cfg.task))
 
     def _state(step):
         return {**{k: v for k, v in s.items() if k not in learner.opts},
@@ -270,7 +280,7 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
                     val_rel_err_std=val.rel_err_std,
                     val_rel_err_median=val.rel_err_median,
                     per_dim_rel_err=val.per_dim_rel_err,
-                    per_time_step_error=None,
+                    per_time_step_error=val.t_rel_sq_err,
                     deployment_time=deployment_time,
                     meta_grad_norm=meta_grad_norm,
                     step_time=step_time,

@@ -30,9 +30,11 @@ Deployment takes the learned-LR rollout, or with cfg.deploy.optimizer set
 k steps of a fresh optimizer (train/deploy.py), which adapts all tasks in
 one batched call.
 
-Not ported: a mesh (mesh.n_task_shards or n_point_shards > 1), viz_every,
-branch_aware_val, profile_dir, non-Poisson PDEs and deploy.n_starts > 1;
-each raises NotImplementedError.
+The families are poisson and td_burgers (its four point kinds, each
+[T, sets, n_kind, 2], go through the same TaskBatch). Not ported: a mesh
+(mesh.n_task_shards or n_point_shards > 1), viz_every, branch_aware_val,
+profile_dir, the other families and deploy.n_starts > 1; each raises
+NotImplementedError.
 """
 
 import torch

@@ -1,6 +1,7 @@
 """Ground truth and validation metrics
-(counterpart of metapde_tpu/train/validation.py: the plain branch and the
-ground-truth cache, without symmetry, per-timestep or branch-aware metrics).
+(counterpart of metapde_tpu/train/validation.py: the plain branch, the
+per-timestep branch and the ground-truth cache, without the symmetry or
+branch-aware metrics).
 
 Metric semantics kept from the JAX package:
 - val_mse: mean squared error of the k-step-adapted field against the
@@ -9,6 +10,11 @@ Metric semantics kept from the JAX package:
   rel_err_std the (population) std of the per-task means, rel_err_median and
   rel_err_p90 their median and 90th percentile (linear interpolation, as
   jnp.median and jnp.percentile).
+- t_rel_sq_err (td_burgers, num_tsteps given): the validation coords cycle
+  through the solver's time grid, so coord j * num_tsteps + i lies at time
+  i; per time i, err^2 over the per-task, per-time mean of gt^2, averaged
+  over tasks and tiles. The JAX package loops over the times; here one
+  reshape [T, tiles, num_tsteps, D] gives the same numbers.
 The JAX package vmaps make_coef_func over the tasks; here the coefficient
 function takes every task at once (maml_driver's make_coef_func_batched).
 """
@@ -16,6 +22,8 @@ function takes every task at once (maml_driver's make_coef_func_batched).
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..pdes.registry import solve_many
 
 
 class GroundTruthBundle(NamedTuple):
@@ -30,7 +38,8 @@ class GroundTruthBundle(NamedTuple):
 def get_ground_truth(pde, gt_params_list, gen, n_points, resolution,
                      cache_dir=None, cache_extra=None) -> GroundTruthBundle:
     """Solve each eval task and tabulate its values at `n_points` validation
-    coords drawn from `gen`, on the task params' device.
+    coords drawn from `gen`, on the task params' device. A family with
+    solve_batched solves all the tasks (or all the cache misses) in one call.
 
     cache_dir: a GroundTruthCache directory (train/gt_cache.py). Eval tasks
     derive from a seed, so a resumed or repeated run reads its ground truths
@@ -41,15 +50,13 @@ def get_ground_truth(pde, gt_params_list, gen, n_points, resolution,
         from .gt_cache import GroundTruthCache
 
         cache = GroundTruthCache(cache_dir)
-    gts, coords, vals = [], [], []
-    for params in gt_params_list:
-        if cache is not None:
-            gt = cache.get_or_solve(pde, params, resolution, extra_hparams=cache_extra)
-        else:
-            gt = pde.solve(params, resolution=resolution)
+        gts = cache.get_or_solve_many(pde, gt_params_list, resolution, extra_hparams=cache_extra)
+    else:
+        gts = solve_many(pde, gt_params_list, resolution)
+    coords, vals = [], []
+    for params, gt in zip(gt_params_list, gts):
         pts = pde.sample_validation_points(gen, n_points, params, gt)
         v = pde.evaluate_gt(gt, pts)
-        gts.append(gt)
         coords.append(pts)
         vals.append(v[:, None] if v.ndim == 1 else v)
     return GroundTruthBundle(
@@ -67,6 +74,7 @@ class ValidationResult(NamedTuple):
     rel_err_std: torch.Tensor     # std of per-task rel err
     rel_err_median: torch.Tensor
     rel_err_p90: torch.Tensor
+    t_rel_sq_err: torch.Tensor = None  # [num_tsteps] per-timestep error, or None
 
 
 def task_generator(i: int) -> torch.Generator:
@@ -76,8 +84,9 @@ def task_generator(i: int) -> torch.Generator:
     return torch.Generator().manual_seed(i)
 
 
-def make_validation_fn(pde, make_coef_func: Callable, n_eval: int):
-    """Build the validation-error function.
+def make_validation_fn(pde, make_coef_func: Callable, n_eval: int, num_tsteps: int = None):
+    """Build the validation-error function; with num_tsteps (td_burgers) it
+    also returns the per-timestep error.
 
     make_coef_func: (gens, model, task_params, coords) -> [T, V] or
     [T, V, out] values of the adapted models at coords [T, V, d], for T =
@@ -96,6 +105,16 @@ def make_validation_fn(pde, make_coef_func: Callable, n_eval: int):
         normalizer = torch.mean(gt ** 2, dim=1, keepdim=True)  # [T,1,D]
         rel_sq_err = err ** 2 / normalizer.mean(dim=2, keepdim=True)
         per_task_rel = torch.mean(rel_sq_err, dim=(1, 2))
+
+        t_rel = None
+        if num_tsteps is not None:
+            n_tasks, _, dims = err.shape
+            tiles = coords.shape[1] // num_tsteps
+            cut = (n_tasks, tiles, num_tsteps, dims)
+            t_err = err[:, :tiles * num_tsteps].reshape(cut)
+            t_norm = torch.mean(gt[:, :tiles * num_tsteps].reshape(cut) ** 2, dim=1,
+                                keepdim=True)  # [T, 1, nt, D]
+            t_rel = torch.mean(t_err ** 2 / t_norm.mean(dim=3, keepdim=True), dim=(0, 1, 3))
         return ValidationResult(
             mse=mse,
             norms=torch.mean(normalizer, dim=(0, 1)),
@@ -104,6 +123,7 @@ def make_validation_fn(pde, make_coef_func: Callable, n_eval: int):
             rel_err_std=torch.std(per_task_rel, unbiased=False),
             rel_err_median=torch.quantile(per_task_rel, 0.5),
             rel_err_p90=torch.quantile(per_task_rel, 0.9),
+            t_rel_sq_err=t_rel,
         )
 
     return validation_error
