@@ -8,7 +8,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
   1 build     nvcc builds csrc/siren_fused.cu for sm_90a (or finds it built),
               with ptxas's register and spill report
   2 kernel    siren_fused against its plain PyTorch version on the card, max
-              |diff| <= 1e-5 on fifteen cases: the four configs of
+              |diff| <= 1e-5 on seventeen cases: the four configs of
               tests/test_pallas_siren.py, one task at the main path's shape
               and at 2^20 points, 8 tasks x 1024 points in one launch with
               per-task and with shared weights, 8 layers at width 128 (weights
@@ -20,7 +20,9 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               validation, 8 x 4096 at 5x64 with per-task weights, and
               TD-Burgers' deployments, 8 x 1008 points (not a multiple of the
               64-point tile) at bm7_5's 8x64 and at ldb3_2's 10x128 (weights
-              streamed), per-task weights; for the timed
+              streamed), per-task weights, and hyperelasticity's validation,
+              16 x 1024 points (8 tasks and their mirrors) with two outputs
+              at em7_9's 8x64 and at lde2_3's 10x128 (streamed); for the timed
               cases, CUDA-event times (median of 20 after 3 warm-ups) of the
               kernel alone on weights packed beforehand and of the wrapper
               with its packing, the kernel's device time under torch.profiler
@@ -33,13 +35,13 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               points: metrics agree to 1e-2
   4 deploy    the Poisson MAML deployment path end to end through
               cli/deploy_bench: checkpoint results_poisson_maml/p30k_f32_s1,
-              8 fresh tasks, FEM ground truth at resolution 16, k = 0, 1, 2, 5
+              4 fresh tasks, FEM ground truth at resolution 16, k = 0, 1, 2, 5
               learned-LR steps, inference through the kernel; checks that the
               kernel launched once per validation call (all tasks in one
               launch: 4 values of k x (1 warm-up + 3 repeats) = 16), every
               value is finite, and the k = 5 median relative error beats
               k = 0 and is within 3x of the JAX package's
-  5 ground_truth_mg  two tasks solved at resolution 32 (multigrid
+  5 ground_truth_mg  one task solved at resolution 32 (multigrid
               preconditioner) on the card and on the CPU: u_grids within
               1e-4 of the grid's largest |value|; seconds per task, Newton
               steps, BiCGStab iterations per Newton step, kernel launches
@@ -77,7 +79,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               one kernel launch per validation call; then a run() that
               resumes from it in the same out_dir must solve nothing
  11 train_bench  cli/train_bench on bench.py's flagship config, bf16 as
-              bench.py runs it, then the f32 variant (5 timed blocks of 2
+              bench.py runs it, then the f32 variant (3 timed blocks of 2
               outer steps each, one profiled block of 2; cuts in `reduced`),
               with the form of the bf16 products that ran
  12 leap_parity  a tiny LEAP meta-training (2 layers of 32, bsize 4, 3
@@ -90,7 +92,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               4096 points) from its checkpoint_step_60000.pickle with its
               Adam state, on the card and on the CPU, same draws and bars
  14 leap_deploy  cli/deploy_bench --algo=leap on a copy of lp2_4 at its
-              full width: 8 fresh tasks, 4096 inner and validation points,
+              full width: 4 fresh tasks, 4096 inner and validation points,
               k = 0, 5, 20, 60, ground truth at resolution 32 (multigrid)
               through gt_cache_torch/; 16 kernel launches (one per
               validation call, every task in one batched rollout and one
@@ -132,6 +134,36 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               results_burgers_leap/ldb3_2 (10x128, weights streamed through
               shared memory): k = 0, 5, 20, 80, 16 launches, the k = 80 median
               below k = 0 and within 3x of the JAX package's CPU median
+ 21 elasticity_gt  two of em7_9's deployment tasks through the sparse-direct
+              neo-Hookean solve on the host (float64, scipy's LU, the
+              reference's own design) at resolution 32 raised by the ligament
+              floor: the floored resolution, seconds, Newton steps and the
+              final |g| (<= 1e-5, the solver's acceptance) of each; the P1
+              interpolation on the card equal to the CPU's within 1e-6 of the
+              field's largest |value| at 1024 validation points
+ 22 elasticity_parity  a small em7_9 deployment (2 tasks, resolution 8 raised
+              by the floor, 256 inner and validation points, k = 0 and 5, the
+              mirror-symmetric validation) on the card and on the CPU, same
+              tasks and points: metrics agree to 1e-2
+ 23 elasticity_deploy  cli/deploy_bench --algo=maml on a copy of
+              results_elasticity_maml/em7_9 (8x64, two outputs, best
+              checkpoint, 8 fresh tasks, k = 0, 1, 2, 5, --energy_audit):
+              16 launches (each validation call evaluates every task and its
+              mirror in one launch), finite values and audit columns, the
+              k = 5 median below k = 0 and within 3x of the JAX package's CPU
+              median
+ 24 leap_elasticity_deploy  cli/deploy_bench --algo=leap on a copy of
+              results_elasticity_leap/lde2_3 (10x128, two outputs, weights
+              streamed, 2048 inner points): k = 0, 5, 20, 40, 16 launches,
+              the k = 40 median below k = 0 and within 3x of the JAX package's
+              CPU median
+ 25 elasticity_train  cli/maml_pde on a copy of em7_9's config at its full
+              width, resumed from its checkpoint_step_500001.pickle with both
+              Adam states: 6 outer steps (cuts in `reduced`), branch-aware
+              validation at 500003 and 500006 on 2 eval tasks: val_rel_err
+              below 5e-2, val_rel_err_branch, val_branch_flags and
+              val_branch_mask present and finite, one launch per validation
+              call; then two unprofiled steps and one profiled
 Then a JSON line with every kernel's numbers (with the training and LEAP
 paths' launches), one with the training numbers and the total seconds, and
 last the ok line. A failed check raises: the exit code is then not 0. A
@@ -167,7 +199,7 @@ from metapde_tpu_torch.models import make_field
 from metapde_tpu_torch.ops import _build, siren_fused
 from metapde_tpu_torch.pdes import get_pde
 from metapde_tpu_torch.pdes.burgers_formulations import default as burgers_default
-from metapde_tpu_torch.solvers import fem_poisson, fv_burgers, multigrid, newton
+from metapde_tpu_torch.solvers import fem_elasticity, fem_poisson, fv_burgers, multigrid, newton
 from metapde_tpu_torch.train import checkpoints, leap_driver, loop, maml_driver, optimizers
 from metapde_tpu_torch.utils.trees import tree_leaves, tree_map
 
@@ -176,16 +208,23 @@ faulthandler.dump_traceback_later(840, exit=True)
 REPO = Path(__file__).resolve().parent
 RUN_DIR = REPO / "results_poisson_maml" / "p30k_f32_s1"
 KERNEL_TOL = 1e-5  # the bar of tests/test_pallas_siren.py
+# p30k_f32_s1's deployments run on 4 fresh tasks (8 before hyperelasticity: the
+# ground truths were a fifth of the run)
+P30K_N_EVAL = 4
 # Median val_rel_err at k=5 from the JAX package's own deploy_bench on the
-# CPU, same checkpoint, resolution and k (command and output in PERF.md):
+# CPU, same checkpoint, resolution, task count and k (command and output
+# in PERF.md):
 #   python -m metapde_tpu.cli.deploy_bench --algo=maml \
 #     --train.load_model_from_expt=<copy of p30k_f32_s1> \
 #     --model.use_pallas_inference=true --solver.ground_truth_resolution=16 \
-#     --task.n_eval=8 --inner-steps-list=0,1,2,5 --checkpoint=best
-JAX_CPU_K5_MEDIAN = 0.00021900353021919727
+#     --task.n_eval=4 --inner-steps-list=0,1,2,5 --checkpoint=best
+JAX_CPU_K5_MEDIAN = 0.00026290814275853336
 # the same command at the checkpoint's own resolution (multigrid):
 #   ... --solver.ground_truth_resolution=32 (the rest as above)
-JAX_CPU_K5_MEDIAN_RES32 = 0.00022156770864967257
+JAX_CPU_K5_MEDIAN_RES32 = 0.00026380622875876725
+# the resolution-32 multigrid solve on the card and on the CPU: one task
+# (two before hyperelasticity), then one more solve of it under torch.profiler
+GT_MG_TASKS = 1
 K5_FACTOR = 3.0
 # card against CPU on the same deployment: the two FEM solves stop at
 # different iterates inside the Newton tolerance, and sums run in other orders
@@ -206,15 +245,18 @@ MG_RES = 32
 MG_TOL = 1e-4
 LEAP_RUN = REPO / "results_poisson_leap" / "lp2_4"
 LEAP_CKPT = LEAP_RUN / "checkpoint_step_60000.pickle"
+# lp2_4's deployments run on 4 fresh tasks (8 before hyperelasticity: their 8
+# resolution-32 solves were most of the run's longest phase)
+LEAP_N_EVAL = 4
 # Median val_rel_err from the JAX package's deploy_bench on the CPU on a
 # copy of lp2_4 (its config: 4096 inner and validation points, ground truth
 # at resolution 32), at the largest k of each protocol (command and output
 # in PERF.md):
 #   python -m metapde_tpu.cli.deploy_bench --algo=leap --from_run=<copy of lp2_4> \
-#     --model.use_pallas_inference=true --task.n_eval=8 --inner-steps-list=0,5,20,60
-JAX_CPU_LEAP_K60_MEDIAN = 0.00035569517058320343
+#     --model.use_pallas_inference=true --task.n_eval=4 --inner-steps-list=0,5,20,60
+JAX_CPU_LEAP_K60_MEDIAN = 0.0006325524300336838
 #   ... --deploy.optimizer=adam --inner-steps-list=0,50,200 (the rest as above)
-JAX_CPU_LEAP_ADAM_K200_MEDIAN = 0.0007742956513538957
+JAX_CPU_LEAP_ADAM_K200_MEDIAN = 0.0006944101769477129
 LEAP_KS = (0, 5, 20, 60)
 LEAP_ADAM_KS = (0, 50, 200)
 # lp2_4's config knobs the port refuses or the bar command sets
@@ -246,6 +288,33 @@ BURGERS_OVERRIDES = {"train.viz_every": 0, "model.use_pallas_inference": "true"}
 # multiples of 5 (3, 5, 2), validation at 500005 and 500010 on 2 eval tasks
 BURGERS_TRAIN_CUTS = {"train.outer_steps": 500012, "train.steps_per_call": 5,
                       "train.val_every": 5, "train.log_every": 5, "task.n_eval": 2}
+# Hyperelasticity: the committed MAML run (8x64) and LEAP run (10x128),
+# two-output fields
+EM_RUN = REPO / "results_elasticity_maml" / "em7_9"
+EM_CKPT = EM_RUN / "checkpoint_step_500001.pickle"
+LDE_RUN = REPO / "results_elasticity_leap" / "lde2_3"
+# Median val_rel_err from the JAX package's deploy_bench on the CPU, on a
+# copy of each run with its own config (the sparse-direct ground truth at
+# resolution 32 raised by the ligament floor, the mirror-symmetric
+# validation), at the largest k (commands and output in PERF.md):
+#   python -m metapde_tpu.cli.deploy_bench --algo=maml --from_run=<copy of em7_9> \
+#     --checkpoint=best --model.use_pallas_inference=true --task.n_eval=8 \
+#     --inner-steps-list=0,1,2,5 --energy_audit
+JAX_CPU_EM_K5_MEDIAN = 0.0021251493599265814
+#   python -m metapde_tpu.cli.deploy_bench --algo=leap --from_run=<copy of lde2_3> \
+#     --checkpoint=best --model.use_pallas_inference=true --task.n_eval=8 \
+#     --inner-steps-list=0,5,20,40
+JAX_CPU_LDE_K40_MEDIAN = 0.0021451401989907026
+LDE_KS = (0, 5, 20, 40)
+EM_OVERRIDES = {"train.viz_every": 0, "model.use_pallas_inference": "true"}
+# resumed at em7_9's step 500001: 6 more outer steps in blocks ending on
+# multiples of 3 (2, 3, 1), validation at 500003 and 500006 on 2 eval tasks
+EM_TRAIN_CUTS = {"train.outer_steps": 500008, "train.steps_per_call": 3,
+                 "train.val_every": 3, "train.log_every": 3, "task.n_eval": 2}
+# the solver's own acceptance of a converged state (fem_elasticity)
+EM_GNORM_TOL = 1e-5
+# the P1 interpolation, card against CPU, of the field's largest |value|
+P1_TOL = 1e-6
 # H100 SXM published peaks (dense, at the 700 W limit): TF32 on the tensor
 # cores, f32 outside them, and HBM bandwidth. The SFU returns 16 sines per
 # clock per SM where the CUDA cores do 128 f32 FMAs (2 flops each): the CUDA
@@ -280,21 +349,25 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, kernel="siren_fused_kernel", reps=20, warmup=3):
+def device_ms(fn, kernel="siren_fused_kernel", reps=20, warmup=3, tries=2):
     """Median device time in ms of the kernel named `kernel` per call of fn,
     from torch.profiler's CUDA kernel events (launch gaps excluded); None
-    when the profiler records no such kernel."""
+    when the profiler records no such kernel in `tries` traces (a trace
+    of the card now and then comes back without its kernel events)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
-    return statistics.median(times) / 1e3 if times else None
+    for _ in range(tries):
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if times:
+            return statistics.median(times) / 1e3
+    return None
 
 
 def _siren_bytes_ms(cfg, n, weight_sets):
@@ -363,8 +436,9 @@ KERNEL_CASES = [  # (name, FieldConfig overrides, tasks, points, weights)
     ("8_layers", dict(num_layers=8), 1, 1500, "one"),
     ("main_path", {}, 1, 1024, "one"),             # one eval task's validation points
     ("main_path_2pow20", {}, 1, 1 << 20, "one"),
-    ("main_path_batched", {}, 8, 1024, "per_task"),  # the deployment at k >= 1
-    ("main_path_shared", {}, 8, 1024, "shared"),     # the deployment at k = 0
+    # p30k_f32_s1's deployment: P30K_N_EVAL tasks x 1024 validation points
+    ("main_path_batched", {}, P30K_N_EVAL, 1024, "per_task"),  # at k >= 1
+    ("main_path_shared", {}, P30K_N_EVAL, 1024, "shared"),     # at k = 0
     ("wide_deep", dict(num_layers=8, layer_size=128), 1, 1500, "one"),
     ("ragged", {}, 3, 1000, "per_task"),
     # more items than blocks: a block walks several (task, tile) items and
@@ -372,17 +446,25 @@ KERNEL_CASES = [  # (name, FieldConfig overrides, tasks, points, weights)
     # next item's first layer while the last one computes)
     ("tasks_cross", {}, 8, 1 << 14, "per_task"),
     ("wide_deep_tasks", dict(num_layers=8, layer_size=128), 3, 1 << 15, "per_task"),
-    # LEAP's validation: 8 tasks x 4096 points at lp2_4's 5x64, adapted weights
-    ("leap_path", dict(num_layers=5), 8, 4096, "per_task"),
+    # LEAP's validation: LEAP_N_EVAL tasks x 4096 points at lp2_4's 5x64,
+    # adapted weights (the smoke's leap_deploy)
+    ("leap_path", dict(num_layers=5), LEAP_N_EVAL, 4096, "per_task"),
     # TD-Burgers deployment: 8 tasks x 1008 points (1024 // 63 * 63, not a
     # multiple of the 64-point tile), bm7_5's 8x64 and ldb3_2's 10x128
     # (weights streamed: they exceed shared memory)
     ("burgers_path", dict(num_layers=8), 8, 1008, "per_task"),
     ("ldb3_path", dict(num_layers=10, layer_size=128), 8, 1008, "per_task"),
+    # hyperelasticity's validation: 8 tasks and their mirrors (16 "tasks")
+    # x 1024 points, two outputs, em7_9's 8x64 (resident) and lde2_3's
+    # 10x128 (streamed)
+    ("em7_9_path", dict(num_layers=8, out_dim=2, squeeze_scalar=False), 16, 1024,
+     "per_task"),
+    ("lde2_3_path", dict(num_layers=10, layer_size=128, out_dim=2, squeeze_scalar=False), 16,
+     1024, "per_task"),
 ]
 CROSSING = ("tasks_cross", "wide_deep_tasks")
 TIMED = ("main_path", "main_path_2pow20", "main_path_batched", "main_path_shared",
-         "tasks_cross", "leap_path", "burgers_path", "ldb3_path")
+         "tasks_cross", "leap_path", "burgers_path", "ldb3_path", "em7_9_path", "lde2_3_path")
 # csrc/siren_fused.cu: points per (task, tile) item, and the most blocks of
 # its 256 threads an SM holds (2048 threads), so the most its persistent
 # grid can have per SM
@@ -504,11 +586,11 @@ def phase_parity():
          cpu={r["inner_steps"]: r["val_rel_err_median"] for r in cpu})
 
 
-def _deploy_checked(tmp, name, deploy, ks, jax_median, **numbers):
-    """deploy() (cli/deploy_bench on 8 fresh tasks, a run dir and its
+def _deploy_checked(tmp, name, deploy, ks, jax_median, n_eval=8, **numbers):
+    """deploy() (cli/deploy_bench on n_eval fresh tasks, a run dir and its
     gt_cache_torch/ under `tmp`) with the launches counted from 0 over the
     run, held to the phase's bars at the largest k: one launch per
-    validation call, 8 cached ground truths, finite values, below k = 0 and
+    validation call, n_eval cached ground truths, finite values, below k = 0 and
     within K5_FACTOR of the JAX package's CPU median. Returns (launches,
     the median val_rel_err for each k)."""
     t0 = time.perf_counter()
@@ -522,10 +604,13 @@ def _deploy_checked(tmp, name, deploy, ks, jax_median, **numbers):
     if launches != expected:
         raise AssertionError(f"{name} launched the siren_fused kernel {launches} times, "
                              f"expected {expected}")
-    if len(cached) != 8:
-        raise AssertionError(f"{len(cached)} ground truths in gt_cache_torch, expected 8")
+    if len(cached) != n_eval:
+        raise AssertionError(f"{len(cached)} ground truths in gt_cache_torch, "
+                             f"expected {n_eval}")
     for r in rows:
-        bad = [k for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)]
+        bad = [k for k, v in r.items() if not all(
+            math.isfinite(x) for x in (v if isinstance(v, list) else [v])
+            if isinstance(x, float))]
         if bad:
             raise AssertionError(f"{name} k={r['inner_steps']}: non-finite {bad}")
     med = {r["inner_steps"]: r["val_rel_err_median"] for r in rows}
@@ -548,10 +633,10 @@ def _maml_deploy_checked(tmp, name, resolution, jax_median, extra=()):
     `resolution`."""
     return _deploy_checked(
         tmp, name, lambda: _deploy(tmp, [
-            f"--solver.ground_truth_resolution={resolution}", "--task.n_eval=8",
+            f"--solver.ground_truth_resolution={resolution}", f"--task.n_eval={P30K_N_EVAL}",
             "--inner-steps-list=" + ",".join(map(str, DEPLOY_KS)),
             f"--repeats={DEPLOY_REPEATS}", *extra]),
-        DEPLOY_KS, jax_median, resolution=resolution)
+        DEPLOY_KS, jax_median, n_eval=P30K_N_EVAL, resolution=resolution)
 
 
 def phase_deploy():
@@ -603,12 +688,13 @@ def _solve_counted(solve, task, device):
 
 
 def phase_ground_truth_mg():
-    """Two eval tasks (host draws, deploy_bench's seed) solved at resolution
-    32 with the multigrid preconditioner on the card and on the CPU."""
+    """The first GT_MG_TASKS eval tasks (host draws, deploy_bench's seed)
+    solved at resolution 32 with the multigrid preconditioner on the card
+    and on the CPU."""
     t0 = time.perf_counter()
     pde = get_pde(Config().task)
     gen = torch.Generator().manual_seed(Config().seed + 7919)
-    tasks = [pde.sample_params(gen) for _ in range(2)]
+    tasks = [pde.sample_params(gen) for _ in range(GT_MG_TASKS)]
     rows = []
     def solve(task):
         return fem_poisson.solve(task, resolution=MG_RES)
@@ -634,7 +720,7 @@ def phase_ground_truth_mg():
     vcycle_ms = cuda_ms(lambda: M(v))
     vcycle_prof = _profile(lambda: M(v))
     newton.bicgstab.iterations = 0
-    solve_prof = _profile(lambda: fem_poisson.solve(tuple(a.to("cuda") for a in tasks[1]),
+    solve_prof = _profile(lambda: fem_poisson.solve(tuple(a.to("cuda") for a in tasks[-1]),
                                                     resolution=MG_RES))
     solve_prof["krylov_iters"] = newton.bicgstab.iterations
     emit("ground_truth_mg", t0, resolution=MG_RES, tol=MG_TOL, tasks=rows,
@@ -845,9 +931,9 @@ def phase_train():
             "resumed_gt_solved_read": resumed}
 
 
-# 5 timed blocks of 2 outer steps and one profiled block of 2, so that the
+# 3 timed blocks of 2 outer steps and one profiled block of 2, so that the
 # whole run, TD-Burgers phases included, stays under 700 s
-BENCH_CUTS = {"block": 2, "blocks": 5}
+BENCH_CUTS = {"block": 2, "blocks": 3}
 BENCH_KEYS = ("outer_steps_per_s", "residual_pt_evals_per_s", "draw_s_per_step",
               "device_busy_ms_per_step", "device_idle_share", "kernels_per_step",
               "max_memory_allocated_bytes", "bf16_gemm", "nvidia_smi", "config")
@@ -944,10 +1030,10 @@ def _leap_deploy_checked(tmp, name, ks, jax_median, extra=()):
     cfg = parse_overrides(load_run_config(str(LEAP_RUN)), overrides)
     return _deploy_checked(
         tmp, name, lambda: deploy_bench.main([
-            "--algo=leap", f"--from_run={run_dir}", *overrides, "--task.n_eval=8",
-            "--inner-steps-list=" + ",".join(map(str, ks)), f"--repeats={DEPLOY_REPEATS}",
-            *extra]),
-        ks, jax_median, resolution=cfg.solver.ground_truth_resolution,
+            "--algo=leap", f"--from_run={run_dir}", *overrides,
+            f"--task.n_eval={LEAP_N_EVAL}", "--inner-steps-list=" + ",".join(map(str, ks)),
+            f"--repeats={DEPLOY_REPEATS}", *extra]),
+        ks, jax_median, n_eval=LEAP_N_EVAL, resolution=cfg.solver.ground_truth_resolution,
         points=cfg.task.inner_points, overrides=LEAP_OVERRIDES)
 
 
@@ -1063,7 +1149,7 @@ def phase_leap_train():
             "resumed_gt_solved_read": resumed}
 
 
-def _burgers_eval_tasks(run, n):
+def _eval_tasks(run, n):
     """deploy_bench's eval tasks of `run`'s config (host draws from seed +
     7919), and its family."""
     cfg = load_run_config(str(run))
@@ -1078,7 +1164,7 @@ def phase_burgers_gt():
     more under torch.profiler; then one FEM task (resolution 64, 11 output
     times) on both."""
     t0 = time.perf_counter()
-    cfg, pde, tasks = _burgers_eval_tasks(BURGERS_RUN, 8)
+    cfg, pde, tasks = _eval_tasks(BURGERS_RUN, 8)
     res = cfg.solver.ground_truth_resolution
 
     def solve(device):
@@ -1150,10 +1236,10 @@ def phase_burgers_parity():
 
 
 def _plan_of(run):
-    """The kernel's launch plan at `run`'s width (from its checkpoint's
-    shapes: num_layers hidden layers and the output layer)."""
+    """The kernel's launch plan at `run`'s width (num_layers hidden layers
+    and the output layer of its family's out_dim)."""
     cfg = load_run_config(str(run))
-    dims = (2, cfg.model.layer_size, cfg.model.num_layers, 1)
+    dims = (2, cfg.model.layer_size, cfg.model.num_layers, get_pde(cfg.task).out_dim)
     return siren_fused.launch_plan(dims, torch.device("cuda"))._asdict()
 
 
@@ -1271,6 +1357,181 @@ def phase_burgers_train():
             "resumed_gt_solved_read": resumed}
 
 
+def phase_elasticity_gt():
+    """Two of em7_9's deployment tasks (host draws, deploy_bench's seed)
+    through solve_direct at resolution 32 raised by the ligament floor,
+    then the P1 interpolation of each on the card against the CPU."""
+    t0 = time.perf_counter()
+    cfg, pde, tasks = _eval_tasks(EM_RUN, 2)
+    res = cfg.solver.ground_truth_resolution
+    rows = []
+    for i, task in enumerate(tasks):
+        fem_elasticity.solve_direct.newton_steps = 0
+        t1 = time.perf_counter()
+        gt = pde.solve(task, resolution=res)
+        secs = time.perf_counter() - t1
+        pts = pde.sample_validation_points(torch.Generator().manual_seed(i), 1024, task, gt)
+        cpu = fem_elasticity.evaluate(gt, pts)
+        card_gt = fem_elasticity.ElasticityGroundTruth(*(a.to("cuda") for a in gt))
+        card, card_s = _timed(lambda: fem_elasticity.evaluate(card_gt, pts.to("cuda")), "cuda")
+        scale = float(cpu.abs().max())
+        err = float((card.cpu() - cpu).abs().max()) / scale
+        row = {"resolution": res, "floored_resolution": pde.effective_resolution(task, res),
+               "s": secs, "newton_steps": fem_elasticity.solve_direct.newton_steps,
+               "final_gnorm": float(gt.final_gnorm), "final_energy": float(gt.final_energy),
+               "p1_card_vs_cpu": err, "p1_card_s": card_s,
+               "dead_elements": float((1 - gt.elem_alive).mean())}
+        rows.append(row)
+        if not float(gt.final_gnorm) <= EM_GNORM_TOL:
+            raise AssertionError(f"task {i}: final |g| {float(gt.final_gnorm)} > {EM_GNORM_TOL}")
+        if not (bool(torch.isfinite(card).all()) and err <= P1_TOL):
+            raise AssertionError(f"task {i}: P1 on the card vs CPU {err} of the field's max "
+                                 f"(> {P1_TOL}), or not finite")
+    emit("elasticity_gt", t0, tol_gnorm=EM_GNORM_TOL, tol_p1=P1_TOL, tasks=rows,
+         host_threads=torch.get_num_threads())
+    return rows
+
+
+def _em_deploy(tmp, args):
+    """deploy_bench.main on a copy of em7_9 under `tmp` (its best checkpoint
+    and config)."""
+    run_dir = _run_copy(tmp, EM_RUN, ("checkpoint_best.pickle", "config.json"))
+    return deploy_bench.main(["--algo=maml", f"--from_run={run_dir}", "--checkpoint=best",
+                              "--model.use_pallas_inference=true", *args])
+
+
+def phase_elasticity_parity():
+    """A small em7_9 deployment on the card and on the CPU: the tasks and
+    points are host draws, so both sides see the same inputs; the two
+    share the ground truths through gt_cache_torch/."""
+    t0 = time.perf_counter()
+    args = ["--solver.ground_truth_resolution=8", "--task.n_eval=2",
+            "--task.validation_points=256", "--task.inner_points=256",
+            "--inner-steps-list=0,5", "--repeats=1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        gpu = _em_deploy(tmp, args)
+        cpu = _em_deploy(tmp, ["--device=cpu", *args])
+    worst = 0.0
+    for g, c in zip(gpu, cpu):
+        for key in ("val_mse", "val_rel_err", "val_rel_err_median", "self_loss_mean"):
+            rel = abs(g[key] - c[key]) / abs(c[key])
+            worst = max(worst, rel)
+            if not rel <= PARITY_RTOL:
+                raise AssertionError(f"k={g['inner_steps']} {key}: card {g[key]} vs "
+                                     f"cpu {c[key]} (rel {rel} > {PARITY_RTOL})")
+    emit("elasticity_parity", t0, rtol=PARITY_RTOL, worst_rel_diff=worst,
+         card={r["inner_steps"]: r["val_rel_err_median"] for r in gpu},
+         cpu={r["inner_steps"]: r["val_rel_err_median"] for r in cpu})
+
+
+def phase_elasticity_deploy():
+    """The em7_9 command: best checkpoint, 8 fresh tasks, k = 0, 1, 2, 5,
+    the energy audit, ground truth through gt_cache_torch/."""
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, _ = _deploy_checked(
+            tmp, "elasticity_deploy", lambda: _em_deploy(tmp, [
+                "--task.n_eval=8", "--inner-steps-list=" + ",".join(map(str, DEPLOY_KS)),
+                f"--repeats={DEPLOY_REPEATS}", "--energy_audit"]),
+            DEPLOY_KS, JAX_CPU_EM_K5_MEDIAN, plan=_plan_of(EM_RUN))
+    return launches
+
+
+def phase_leap_elasticity_deploy():
+    """cli/deploy_bench --algo=leap on a copy of lde2_3 (10x128, 2048 inner
+    and 1024 validation points): k = 0, 5, 20, 40, every task and its
+    mirror in one launch, the weights streamed."""
+    plan = _plan_of(LDE_RUN)
+    if plan["resident"]:
+        raise AssertionError(f"lde2_3's 10x128 weights planned resident: {plan}")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = _run_copy(tmp, LDE_RUN, ("checkpoint_best.pickle", "config.json"))
+        return _deploy_checked(
+            tmp, "leap_elasticity_deploy", lambda: deploy_bench.main([
+                "--algo=leap", f"--from_run={run_dir}", "--checkpoint=best",
+                "--model.use_pallas_inference=true", "--task.n_eval=8",
+                "--inner-steps-list=" + ",".join(map(str, LDE_KS)),
+                f"--repeats={DEPLOY_REPEATS}"]),
+            LDE_KS, JAX_CPU_LDE_K40_MEDIAN, plan=plan)[0]
+
+
+def phase_elasticity_train():
+    """cli/maml_pde on a copy of em7_9's config.json at its full width,
+    resumed from its checkpoint_step_500001.pickle with both Adam states:
+    6 outer steps, branch-aware validation through the kernel against the
+    host-solved ground truth, a final checkpoint; then the step's numbers."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = _run_copy(tmp, EM_RUN, ("config.json", EM_CKPT.name))
+        out = Path(tmp) / "out"
+        cuts = {**EM_TRAIN_CUTS, **EM_OVERRIDES}
+        args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in cuts.items()),
+                f"--train.out_dir={out}", "--train.expt_name=smoke"]
+        siren_fused.siren_apply_fused_batched.launches = 0
+        fem_elasticity.solve_direct.newton_steps = 0
+        maml_pde.main(args)
+        torch.cuda.synchronize()
+        launches = siren_fused.siren_apply_fused_batched.launches
+        run = out / "smoke"
+        last = EM_TRAIN_CUTS["train.outer_steps"]
+        for f in ("log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
+                  f"checkpoint_step_{last}.pickle"):
+            if not (run / f).exists():
+                raise AssertionError(f"the elasticity training run wrote no {f}")
+        log_text = (run / "log.txt").read_text()
+        for line in ("resuming optimizer state at step 500002",
+                     "branch-aware validation on: oracle energies"):
+            if line not in log_text:
+                raise AssertionError(f"log.txt lacks {line!r}")
+        recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+        jax_keys = sorted(json.loads((EM_RUN / "metrics.jsonl").read_text().splitlines()[0]))
+        if not recs or sorted(recs[0]) != jax_keys:
+            raise AssertionError(f"metrics.jsonl keys {sorted(recs[0]) if recs else []} != "
+                                 f"the JAX run's {jax_keys}")
+        if [r["step"] for r in recs] != [500003, 500006]:
+            raise AssertionError(f"validation records at {[r['step'] for r in recs]}")
+        n_eval = EM_TRAIN_CUTS["task.n_eval"]
+        for r in recs:
+            for k in ("meta_loss", "val_meta_loss", "val_rel_err", "val_mse",
+                      "val_rel_err_branch"):
+                if not math.isfinite(r[k]):
+                    raise AssertionError(f"step {r['step']}: {k} = {r[k]}")
+            if not r["val_rel_err"] < 5e-2:
+                raise AssertionError(f"step {r['step']}: val_rel_err {r['val_rel_err']} >= 5e-2")
+            if (len(r["val_branch_mask"]) != n_eval
+                    or r["val_branch_flags"] != sum(r["val_branch_mask"])):
+                raise AssertionError(f"step {r['step']}: branch mask {r['val_branch_mask']}, "
+                                     f"flags {r['val_branch_flags']}")
+        if launches != len(recs):
+            raise AssertionError(f"the elasticity training path launched siren_fused {launches} "
+                                 f"times for {len(recs)} validation calls")
+        ckpt_keys = _check_final_checkpoint(run / f"checkpoint_step_{last}.pickle", EM_CKPT)
+        gt_solved = _gt_log(run)
+        final = checkpoints.load_checkpoint(str(run / f"checkpoint_step_{last}.pickle"))
+    cfg = parse_overrides(load_run_config(str(EM_RUN)), ["--train.viz_every=0"])
+    state = (params_from_numpy(final["params"], "cuda"),
+             params_from_numpy(final["inner_lrs"], "cuda"),
+             *(params_from_numpy(final[f"torch_{k}"], "cuda", dtype=None)
+               for k in ("opt_state", "lr_opt_state")))
+    bench = _step_numbers(cfg, maml_driver.build(cfg, "cuda"), state,
+                          lambda o: (o[:4], o[5][0].mean()))
+    step_s = statistics.mean(r["step_time"] for r in recs)
+    emit("elasticity_train", t0, reduced=cuts, launches=launches, validations=len(recs),
+         gt_solved_read=gt_solved, newton_steps=fem_elasticity.solve_direct.newton_steps,
+         meta_loss=[r["meta_loss"] for r in recs],
+         val_rel_err=[r["val_rel_err"] for r in recs],
+         val_rel_err_median=[r["val_rel_err_median"] for r in recs],
+         val_rel_err_branch=[r["val_rel_err_branch"] for r in recs],
+         val_branch_flags=[r["val_branch_flags"] for r in recs],
+         val_branch_mask=[r["val_branch_mask"] for r in recs],
+         per_dim_rel_err=[r["per_dim_rel_err"] for r in recs],
+         deployment_time=[r["deployment_time"] for r in recs],
+         step_time=[r["step_time"] for r in recs], steps_per_s=1.0 / step_s,
+         checkpoint_keys=ckpt_keys, bench=bench)
+    return {"launches": launches, "steps_per_s": 1.0 / step_s, **bench,
+            "deployment_time": recs[-1]["deployment_time"],
+            "val_rel_err": recs[-1]["val_rel_err"], "gt_solved_read": gt_solved}
+
+
 PHASES = {
     "kernel": phase_kernel, "parity": phase_parity, "deploy": phase_deploy,
     "ground_truth_mg": phase_ground_truth_mg, "deploy_mg": phase_deploy_mg,
@@ -1281,6 +1542,10 @@ PHASES = {
     "leap_train": phase_leap_train, "burgers_gt": phase_burgers_gt,
     "burgers_parity": phase_burgers_parity, "burgers_deploy": phase_burgers_deploy,
     "burgers_train": phase_burgers_train, "leap_burgers_deploy": phase_leap_burgers_deploy,
+    "elasticity_gt": phase_elasticity_gt, "elasticity_parity": phase_elasticity_parity,
+    "elasticity_deploy": phase_elasticity_deploy,
+    "leap_elasticity_deploy": phase_leap_elasticity_deploy,
+    "elasticity_train": phase_elasticity_train,
 }
 
 
@@ -1310,6 +1575,11 @@ def main(argv):
     burgers_deploy_launches = phase_burgers_deploy()
     burgers_train = phase_burgers_train()
     leap_burgers_deploy_launches = phase_leap_burgers_deploy()
+    elasticity_gt = phase_elasticity_gt()
+    phase_elasticity_parity()
+    elasticity_deploy_launches = phase_elasticity_deploy()
+    leap_elasticity_deploy_launches = phase_leap_elasticity_deploy()
+    elasticity_train = phase_elasticity_train()
     main_row, big = kern["main_path_batched"], kern["main_path_2pow20"]
     timing_keys = ("ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
                    "bound_f32_ms")
@@ -1347,6 +1617,12 @@ def main(argv):
         **{f"at_{case.split('_')[0]}_shape": {k: kern[case][k] for k in (
             "tasks", "n", "max_abs_err", *timing_keys, "resident", "smem_bytes",
             "blocks_per_sm", "n_sm")} for case in ("burgers_path", "ldb3_path")},
+        "elasticity_deploy_launches": elasticity_deploy_launches,
+        "leap_elasticity_deploy_launches": leap_elasticity_deploy_launches,
+        "elasticity_train_launches": elasticity_train["launches"],
+        **{f"at_{case[:-5]}_shape": {k: kern[case][k] for k in (
+            "tasks", "n", "max_abs_err", *timing_keys, "resident", "smem_bytes",
+            "blocks_per_sm", "n_sm")} for case in ("em7_9_path", "lde2_3_path")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"training": {"train": train,
@@ -1354,7 +1630,9 @@ def main(argv):
                                                    for k, r in bench.items()},
                                    "leap_train": leap_train,
                                    "burgers_train": burgers_train,
-                                   "burgers_gt": burgers_gt},
+                                   "burgers_gt": burgers_gt,
+                                   "elasticity_train": elasticity_train,
+                                   "elasticity_gt": elasticity_gt},
                       "ground_truth_mg": gt_mg,
                       "total_s": time.perf_counter() - T_START}), flush=True)
     print(json.dumps({"ok": True, "device": {

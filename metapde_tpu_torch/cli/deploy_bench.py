@@ -20,9 +20,17 @@ the FEM ground truth:
         --from_run=results_burgers_maml/bm7_5 --model.use_pallas_inference=true \
         --task.n_eval=8 --inner-steps-list=0,1,2,5 --checkpoint=best
 
+    python -m metapde_tpu_torch.cli.deploy_bench --algo=maml \
+        --from_run=results_elasticity_maml/em7_9 --checkpoint=best \
+        --model.use_pallas_inference=true --task.n_eval=8 \
+        --inner-steps-list=0,1,2,5 --energy_audit
+
 (resolution 32 is the one p30k_f32_s1 trained with; from 32 up the FEM
 solve takes the multigrid preconditioner; a td_burgers run's ground truth
-is its FV solve at its own resolution, all eval tasks in one time loop). Runs on CUDA unless given
+is its FV solve at its own resolution, all eval tasks in one time loop; a
+hyper_elasticity run's is the sparse-direct solve on the host at its
+resolution raised by the ligament floor, and its validation scores the
+mirrored field too). Runs on CUDA unless given
 --device=cpu. Prints one JSON row per k, with the JAX CLI's keys plus the
 device, and writes them to
 deploy_bench_torch[_<deploy.optimizer>][_<compute_dtype>]_n<n_eval>[_best].jsonl
@@ -33,7 +41,16 @@ checkpoint dir, where the JAX CLI's cache is gt_cache/. The timing barrier
 is torch.cuda.synchronize(). A validation call adapts every task and
 evaluates them in one inference call: LEAP and the deploy.optimizer path
 (under both algos) adapt all tasks in one batched rollout, MAML's
-learned-LR path task by task. --energy_audit and deploy.n_starts > 1 raise.
+learned-LR path task by task; with the mirror (hyper_elasticity) the
+inference call takes each task's coords and mirrored coords.
+
+--energy_audit adds, per k, each task's MC domain energy of the adapted
+model and of the ground-truth field on fixed audit points (task i's drawn
+from a host generator seeded 31 + i), and the count of tasks where the
+model's is within 2% of the oracle's or below (energy_parity_tasks: there
+the error measures a branch disagreement, not the solution's quality).
+deploy.n_starts > 1 deploys each task by the multi-start
+(train/multistart.py) and records n_starts and jitter in the rows.
 """
 
 import json
@@ -51,7 +68,8 @@ from ..interop import params_from_numpy
 from ..train import checkpoints as ckpt
 from ..train import leap_driver, maml_driver
 from ..train.gt_cache import task_cache_extra
-from ..train.loop import device_barrier, validation_num_tsteps
+from ..train.energy import audit_points, model_energies, oracle_energies
+from ..train.loop import device_barrier, validation_kwargs
 from ..train.multistart import make_score_fn
 from ..train.validation import get_ground_truth, make_validation_fn, task_generator
 from ..utils.trees import tree_map, tree_stack
@@ -108,8 +126,6 @@ def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
     drivers = {"maml": maml_driver, "leap": leap_driver}
     if algo not in drivers:
         raise ValueError(f"--algo={algo}: expected one of {sorted(drivers)}")
-    if energy_audit:
-        raise NotImplementedError("--energy_audit is not ported yet")
     device = resolve_device(str(device))
     c = drivers[algo].build(cfg, device)
     pde = c["pde"]
@@ -122,17 +138,29 @@ def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
                              cfg.deploy.score_points or cfg.task.validation_points)
 
     def adapted(k):
-        """Each task's adapted params from its validation generator, in one
-        call of the driver's batched deployment."""
+        """Every task's adapted params (leaves [T, ...]) from its validation
+        generator, in one call of the driver's batched deployment."""
         gens = [task_generator(i) for i in range(cfg.task.n_eval)]
-        finals = c["deploy_final_model_batched"](gens, model, tree_stack(bundle.gt_params),
-                                                 int(k))
-        return [tree_map(lambda x: x[i], finals) for i in range(cfg.task.n_eval)]
+        return c["deploy_final_model_batched"](gens, model, tree_stack(bundle.gt_params), int(k))
 
-    def self_losses(k):
+    def self_losses(finals):
         with torch.no_grad():
-            return torch.stack([score_fn(task_generator(1), fp, tp)
-                                for fp, tp in zip(adapted(k), bundle.gt_params)]).cpu().numpy()
+            return torch.stack([score_fn(task_generator(1), tree_map(lambda x: x[i], finals), tp)
+                                for i, tp in enumerate(bundle.gt_params)]).cpu().numpy()
+
+    audit_pts = oracle_e = None
+    if energy_audit:
+        audit_pts = audit_points(pde, bundle.gt_params, cfg.task.validation_points)
+        oracle_e = oracle_energies(pde, bundle, audit_pts).cpu().tolist()
+
+    def audit_cols(finals):
+        model_e = model_energies(pde, c["field"], finals, bundle.gt_params,
+                                 audit_pts).cpu().tolist()
+        return {"model_energy": model_e, "oracle_energy_mc": oracle_e,
+                # tasks where the model matches or beats the oracle's sampled
+                # energy within 2%: the error there is a branch disagreement
+                "energy_parity_tasks": int(sum(m <= o * 1.02
+                                               for m, o in zip(model_e, oracle_e)))}
 
     device_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                    else "cpu")
@@ -140,7 +168,7 @@ def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
     for k in inner_steps_list:
         val_fn = make_validation_fn(
             pde, partial(c["make_coef_func_batched"], inner_steps=int(k)), cfg.task.n_eval,
-            num_tsteps=validation_num_tsteps(cfg.task))
+            **validation_kwargs(cfg.task))
         val = val_fn(model, bundle.gt_params, bundle.coords, bundle.gt_vals)
         device_barrier(device)  # warm-up
 
@@ -149,13 +177,18 @@ def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
             val = val_fn(model, bundle.gt_params, bundle.coords, bundle.gt_vals)
             device_barrier(device)
         dt = (time.perf_counter() - t0) / repeats
-        sl = self_losses(k)
+        # the adaptation that validation ran, once more, for the columns
+        # that need the adapted params (the JAX CLI adapts for each)
+        finals = adapted(k)
+        sl = self_losses(finals)
         row = {
             "inner_steps": int(k),
             "n_eval": int(cfg.task.n_eval),
             "checkpoint": os.path.basename(fname),
             "checkpoint_step": int(state.get("step", -1)),
             "device": device_name,
+            **({"n_starts": cfg.deploy.n_starts, "jitter": cfg.deploy.jitter}
+               if cfg.deploy.n_starts > 1 else {}),
             **({"deploy_optimizer": cfg.deploy.optimizer,
                 "deploy_inner_lr": cfg.deploy.inner_lr} if cfg.deploy.optimizer else {}),
             **({"compute_dtype": cfg.model.compute_dtype} if cfg.model.compute_dtype else {}),
@@ -168,6 +201,7 @@ def run(cfg: Config, algo: str = "maml", inner_steps_list=(0, 1, 2, 5, 10, 20),
             "self_loss_mean": float(np.mean(sl)),
             "self_loss_median": float(np.median(sl)),
             "self_loss_max": float(np.max(sl)),
+            **(audit_cols(finals) if energy_audit else {}),
         }
         rows.append(row)
         print(json.dumps(row), flush=True)

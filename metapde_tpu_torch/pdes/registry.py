@@ -30,6 +30,11 @@ class PdeDef(NamedTuple):
     evaluate_gt_hi: Callable = None  # evaluation matching solve_hi's order
     # (params list, resolution) -> ground truths of several tasks in one solve
     solve_batched: Callable = None
+    # (params, requested resolution) -> the resolution the oracle solves at
+    effective_resolution: Callable = None
+    # (params, resolution, warm_start, ref=False) -> a re-solve that starts
+    # from another resolution's ground truth of the same task
+    solve_warm: Callable = None
 
 
 def solve_many(pde, params_list, resolution):
@@ -41,7 +46,8 @@ def solve_many(pde, params_list, resolution):
 
 
 def get_pde(cfg: TaskConfig) -> PdeDef:
-    """Build the PdeDef for cfg.pde. "poisson" and "td_burgers" are ported."""
+    """Build the PdeDef for cfg.pde. "poisson", "td_burgers" and
+    "hyper_elasticity" are ported."""
     if cfg.pde == "poisson":
         from . import poisson
 
@@ -50,6 +56,10 @@ def get_pde(cfg: TaskConfig) -> PdeDef:
         from . import td_burgers
 
         return td_burgers.make_pde(cfg)
-    if cfg.pde in ("hyper_elasticity", "steady_burgers", "poisson3d"):
+    if cfg.pde == "hyper_elasticity":
+        from . import hyper_elasticity
+
+        return hyper_elasticity.make_pde(cfg)
+    if cfg.pde in ("steady_burgers", "poisson3d"):
         raise NotImplementedError(f"pde {cfg.pde!r} is not ported yet")
     raise ValueError(f"unrecognized pde: {cfg.pde!r}")

@@ -50,10 +50,11 @@ def one_task(final_model_batched):
     return final_model
 
 
-def coef_funcs(field, final_model_batched, default_k: int, init_of):
+def coef_funcs(field, final_model_batched, default_k: int, init_of, k0_shared: bool = True):
     """A driver's (deploy_final_model, make_coef_func, make_coef_func_batched)
     over its batched deployment `final_model_batched`; init_of: model -> the
-    meta-learned params (the field at k = 0)."""
+    meta-learned params, the field at k = 0 when k0_shared (false for a
+    jittered multi-start, which picks among jittered inits at k = 0 too)."""
     deploy_final_model = one_task(final_model_batched)
 
     def make_coef_func(gen, model, task_params, coords, inner_steps=None):
@@ -68,15 +69,22 @@ def coef_funcs(field, final_model_batched, default_k: int, init_of):
         batched adaptation of every task (gens[i], task_params[i], and
         points per kind [T, sets, n, ...] when given), then one batched
         inference on the stacked params, or on the shared init at k = 0.
-        coords [T, V, d] -> [T, V] or [T, V, out]."""
+        coords [T, V, d] -> [T, V] or [T, V, out]; coords [T, S, V, d] (S
+        coordinate sets a task, e.g. a mirror) -> [T, S, ...], still one
+        inference call, each task's params repeated for its S sets."""
         k = default_k if inner_steps is None else inner_steps
-        if k == 0:
+        if k == 0 and k0_shared:
             final_params, shared = init_of(model), True
         else:
             final_params = final_model_batched(gens, model, tree_stack(task_params), k, points)
             shared = False
+        lead = coords.shape[:-2]
+        if len(lead) == 2 and not shared:
+            final_params = tree_map(lambda p: p.repeat_interleave(lead[1], dim=0), final_params)
         with torch.no_grad():
-            return field.apply_inference_batched(final_params, coords, shared=shared)
+            out = field.apply_inference_batched(final_params, coords.reshape(-1, *coords.shape[-2:]),
+                                                shared=shared)
+        return out.reshape(*lead, *out.shape[1:])
 
     return deploy_final_model, make_coef_func, make_coef_func_batched
 

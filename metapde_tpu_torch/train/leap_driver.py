@@ -32,9 +32,10 @@ resume from the port's or the JAX package's LEAP checkpoints (the JAX one's
 Adam state carries over). Its NaN abort reads the per-step meta-losses
 (the last column of the loss history) also for a block of one step, where
 the JAX driver reads the mean of the whole history: a NaN loss gives NaN
-params and so a NaN last loss. The families are poisson and td_burgers. Not
-ported: a mesh, viz_every, branch_aware_val, profile_dir, the other
-families and deploy.n_starts > 1; each raises NotImplementedError.
+params and so a NaN last loss. The families are poisson, td_burgers and
+hyper_elasticity; deploy.n_starts > 1 wraps the deployment in the
+multi-start (train/multistart.py). Not ported: a mesh, viz_every,
+profile_dir and the other families; each raises NotImplementedError.
 """
 
 import torch
@@ -44,7 +45,7 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..meta import leap
 from ..models.siren import mixed_precision_scope
 from ..utils.trees import global_norm, tree_map, tree_stack
-from . import loop
+from . import loop, multistart
 from .deploy import coef_funcs, draw_sets, expand_tasks, make_opt_final_model, one_task
 from .optimizers import adam, apply_updates, get_optimizer
 
@@ -135,8 +136,12 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
     if cfg.deploy.optimizer:
         deploy_final_model_batched = make_opt_final_model(
             pde, loss_fn, field, cfg.task, cfg.deploy, model_is_pair=False)
+    # multi-start (deploy.n_starts > 1): each task's best of K candidates
+    deploy_final_model_batched = multistart.wrap_driver_deployment(
+        cfg, pde, loss_fn, field, deploy_final_model_batched, model_is_pair=False)
     deploy_final_model, make_coef_func, make_coef_func_batched = coef_funcs(
-        field, deploy_final_model_batched, leap_def.inner_steps, init_of=lambda m: m)
+        field, deploy_final_model_batched, leap_def.inner_steps, init_of=lambda m: m,
+        k0_shared=multistart.init_is_the_k0_field(cfg))
 
     return dict(
         pde=pde,

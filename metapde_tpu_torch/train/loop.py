@@ -23,6 +23,7 @@ from ..pdes import get_pde
 from ..utils import Timer
 from ..utils.trees import tree_map
 from . import checkpoints as ckpt
+from .energy import make_branch_kwargs
 from .gt_cache import task_cache_extra
 from .metrics import prepare_logging
 from .optimizers import from_jax_state
@@ -49,9 +50,6 @@ def problem(cfg: Config):
     if cfg.mesh.n_task_shards > 1 or cfg.mesh.n_point_shards > 1:
         raise NotImplementedError("a device mesh (mesh.n_task_shards or "
                                   "n_point_shards > 1) is not ported yet")
-    if cfg.deploy.n_starts > 1:
-        raise NotImplementedError("multi-start deployment (deploy.n_starts > 1) "
-                                  "is not ported yet")
     pde = get_pde(cfg.task)
     model_cfg = dataclasses.replace(
         cfg.model, in_dim=pde.in_dim, out_dim=pde.out_dim,
@@ -73,13 +71,15 @@ def problem(cfg: Config):
     return pde, model_cfg, field, loss_fn, task_loss
 
 
-TRAINED_PDES = ("poisson", "td_burgers")
+TRAINED_PDES = ("poisson", "td_burgers", "hyper_elasticity")
 
 
-def validation_num_tsteps(task_cfg):
-    """The per-timestep metric's time count: td_burgers' num_tsteps, else
-    None (the JAX drivers' and deploy_bench's rule)."""
-    return task_cfg.num_tsteps if task_cfg.pde == "td_burgers" else None
+def validation_kwargs(task_cfg):
+    """make_validation_fn's family options, by the JAX drivers' and
+    deploy_bench's rule: td_burgers' per-timestep metric over num_tsteps,
+    hyper_elasticity's mirror symmetry."""
+    return dict(num_tsteps=task_cfg.num_tsteps if task_cfg.pde == "td_burgers" else None,
+                symmetry=task_cfg.pde == "hyper_elasticity")
 
 
 def check_run_options(cfg: Config):
@@ -89,8 +89,6 @@ def check_run_options(cfg: Config):
     if cfg.train.viz_every > 0 and cfg.train.expt_name is not None:
         raise NotImplementedError("viz_every: the ground-truth plots (train/viz.py) are "
                                   "not ported yet; pass --train.viz_every=0")
-    if cfg.train.branch_aware_val:
-        raise NotImplementedError("branch_aware_val is not ported yet")
     if cfg.train.profile_dir:
         raise NotImplementedError("profile_dir is not ported yet; time the training "
                                   "step with cli/train_bench")
@@ -212,7 +210,9 @@ def _resume(cfg: Config, learner: Learner, s: dict, gen, device, log):
 def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
     """The meta-training loop (the JAX package's run()): logs, resumes from
     the latest checkpoint of the port or of the JAX package, validates
-    every `val_every or log_every` steps against the FEM ground truth,
+    every `val_every or log_every` steps against the FEM ground truth
+    (with train.branch_aware_val also the energy-gated metrics of
+    train/energy.py),
     keeps the best checkpoint and writes periodic and final ones.
     c: the driver's build; s: the fresh state. Returns the final state."""
     path, log, metrics = start_run(cfg, learner.name)
@@ -227,9 +227,19 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
     if eval_seed is None:
         eval_seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
     bundle = eval_ground_truth(cfg, c["pde"], eval_seed, device, log)
+    # branch-aware validation: each eval task's oracle energy once on fixed
+    # audit points; each validation compares the adapted model's energy on
+    # the same points (train/energy.py)
+    branch_kwargs = {}
+    if cfg.train.branch_aware_val:
+        branch_kwargs = make_branch_kwargs(c["pde"], bundle, c["deploy_final_model_batched"],
+                                           c["field"], learner.inner_steps,
+                                           cfg.task.validation_points)
+        log("branch-aware validation on: oracle energies "
+            f"{[round(float(e), 5) for e in branch_kwargs['oracle_energy']]}")
     validation_fn = make_validation_fn(
         c["pde"], partial(c["make_coef_func_batched"], inner_steps=learner.inner_steps),
-        cfg.task.n_eval, num_tsteps=validation_num_tsteps(cfg.task))
+        cfg.task.n_eval, **validation_kwargs(cfg.task), **branch_kwargs)
 
     def _state(step):
         return {**{k: v for k, v in s.items() if k not in learner.opts},
@@ -285,9 +295,16 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
                     meta_grad_norm=meta_grad_norm,
                     step_time=step_time,
                     per_step_losses=losses.mean(dim=0),
+                    **({} if val.rel_err_branch is None else dict(
+                        val_rel_err_branch=val.rel_err_branch,
+                        val_branch_flags=val.branch_flags,
+                        val_branch_mask=val.branch_mask.to(torch.int64))),
                 )
             if path is not None:
-                best_val = {"rel_err_median": val.rel_err_median}.get(
+                # rel_err_branch without the audit falls back to the mean
+                best_val = {"rel_err_median": val.rel_err_median,
+                            "rel_err_branch": (val.rel_err if val.rel_err_branch is None
+                                               else val.rel_err_branch)}.get(
                     cfg.train.best_metric, val.rel_err)
                 ckpt.save_best_checkpoint(path, log_step, float(best_val), _state(step))
 

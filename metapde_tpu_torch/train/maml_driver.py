@@ -30,11 +30,12 @@ Deployment takes the learned-LR rollout, or with cfg.deploy.optimizer set
 k steps of a fresh optimizer (train/deploy.py), which adapts all tasks in
 one batched call.
 
-The families are poisson and td_burgers (its four point kinds, each
-[T, sets, n_kind, 2], go through the same TaskBatch). Not ported: a mesh
-(mesh.n_task_shards or n_point_shards > 1), viz_every, branch_aware_val,
-profile_dir, the other families and deploy.n_starts > 1; each raises
-NotImplementedError.
+The families are poisson, td_burgers and hyper_elasticity (their point
+kinds, each [T, sets, n_kind, 2], go through the same TaskBatch).
+deploy.n_starts > 1 wraps the deployment in the multi-start
+(train/multistart.py). Not ported: a mesh (mesh.n_task_shards or
+n_point_shards > 1), viz_every, profile_dir and the other families; each
+raises NotImplementedError.
 """
 
 import torch
@@ -44,7 +45,7 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..meta import maml
 from ..models.siren import mixed_precision_scope
 from ..utils.trees import global_norm, tree_map, tree_stack
-from . import loop
+from . import loop, multistart
 from .deploy import coef_funcs, make_opt_final_model
 from .optimizers import adam, apply_updates, get_optimizer
 
@@ -173,8 +174,12 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
     if cfg.deploy.optimizer:
         deploy_final_model_batched = make_opt_final_model(
             pde, loss_fn, field, cfg.task, cfg.deploy, model_is_pair=True)
+    # multi-start (deploy.n_starts > 1): each task's best of K candidates
+    deploy_final_model_batched = multistart.wrap_driver_deployment(
+        cfg, pde, loss_fn, field, deploy_final_model_batched, model_is_pair=True)
     deploy_final_model, make_coef_func, make_coef_func_batched = coef_funcs(
-        field, deploy_final_model_batched, maml_def.inner_steps, init_of=lambda m: m[0])
+        field, deploy_final_model_batched, maml_def.inner_steps, init_of=lambda m: m[0],
+        k0_shared=multistart.init_is_the_k0_field(cfg))
 
     return dict(
         pde=pde,

@@ -252,11 +252,9 @@ def test_deploy_bench_raises_for_unported_options(tmp_path):
     with pytest.raises(ValueError, match="--algo"):
         deploy_bench.main(base + ["--algo=reptile"])
     with pytest.raises(NotImplementedError):
-        deploy_bench.main(base + ["--energy_audit"])
+        deploy_bench.main(base + ["--task.pde=steady_burgers"])
     with pytest.raises(NotImplementedError):
-        deploy_bench.main(base + ["--deploy.n_starts=2"])
-    with pytest.raises(NotImplementedError):
-        deploy_bench.main(base + ["--algo=leap", "--deploy.n_starts=2"])
+        deploy_bench.main(base + ["--algo=leap", "--task.pde=poisson3d"])
 
 
 LEAP_RUN = Path(__file__).resolve().parents[1] / "results_poisson_leap" / "lp2_4"

@@ -190,7 +190,7 @@ def test_operator_branch_equals_vhd_branch():
             np.testing.assert_allclose(float(a[k]), float(b[k]), rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["poisson3d", "hyper_elasticity"])
+@pytest.mark.parametrize("name", ["poisson3d", "steady_burgers"])
 def test_other_families_are_not_ported(name):
     with pytest.raises(NotImplementedError):
         get_pde(TaskConfig(pde=name))
