@@ -8,7 +8,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
   1 build     nvcc builds csrc/siren_fused.cu for sm_90a (or finds it built),
               with ptxas's register and spill report
   2 kernel    siren_fused against its plain PyTorch version on the card, max
-              |diff| <= 1e-5 on seventeen cases: the four configs of
+              |diff| <= 1e-5 on nineteen cases: the four configs of
               tests/test_pallas_siren.py, one task at the main path's shape
               and at 2^20 points, 8 tasks x 1024 points in one launch with
               per-task and with shared weights, 8 layers at width 128 (weights
@@ -22,7 +22,10 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               64-point tile) at bm7_5's 8x64 and at ldb3_2's 10x128 (weights
               streamed), per-task weights, and hyperelasticity's validation,
               16 x 1024 points (8 tasks and their mirrors) with two outputs
-              at em7_9's 8x64 and at lde2_3's 10x128 (streamed); for the timed
+              at em7_9's 8x64 and at lde2_3's 10x128 (streamed), and steady
+              Burgers' validation, 4 x 1024 with two outputs at sbi10_2's
+              5x64, and poisson3d's, 8 x 2048 at in_dim 3 and the pipeline's
+              5x128 (streamed); for the timed
               cases, CUDA-event times (median of 20 after 3 warm-ups) of the
               kernel alone on weights packed beforehand and of the wrapper
               with its packing, the kernel's device time under torch.profiler
@@ -164,6 +167,40 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               below 5e-2, val_rel_err_branch, val_branch_flags and
               val_branch_mask present and finite, one launch per validation
               call; then two unprofiled steps and one profiled
+ 26 steady_gt  one of sbi10_2's deployment tasks through the steady FEM
+              solve at resolution 48 (Jacobi-BiCGStab, the solver's own
+              constants) on the card and on the CPU: u_grids within 1e-4 of
+              the grid's largest |u|; seconds, Newton steps, Krylov
+              iterations, the final residual norm, and one solve under
+              torch.profiler (launches an iteration, idle share); the P1
+              evaluation on the card within 1e-6 of the CPU's
+ 27 steady_parity  a 2-task sbi10_2 deployment at k = 0 and 10 on the card
+              and on the CPU, shared ground truths: metrics within 1e-4
+              relative
+ 28 steady_deploy  cli/deploy_bench --algo=maml on a copy of
+              results_sburgers_maml/sbi10_2 (5x64, two outputs, best
+              checkpoint, 4 fresh tasks, k = 0, 10, 20, 40, 80, ground truth
+              at resolution 48): 20 launches, the k = 80 median below k = 0
+              and within 3x of the JAX package's CPU median; then
+              --deploy.optimizer=adam at k = 0, 50 from the cached ground
+              truths (steady_deploy_adam): 8 launches, no Newton step, the
+              same bars at k = 50
+ 29 steady_train  cli/maml_pde on a copy of sbi10_2's config at its full
+              width (bsize 8, 10 inner steps, remat, 1024 points), resumed
+              from its checkpoint_step_100001.pickle with both Adam states:
+              4 outer steps (cuts in `reduced`), validation at 100003 and
+              100005 on 2 eval tasks at resolution 48, val_rel_err below
+              5e-2, one launch per validation call; then two unprofiled
+              steps and one profiled
+ 30 poisson3d_parity  train_parity on poisson3d at the pipeline's 5x128,
+              cut to bsize 2 and 256 points, 3 outer steps
+ 31 poisson3d_train  cli/maml_pde --task.pde=poisson3d with
+              pipeline/maml_meta_3d.sh's flags at its one-chip width (5x128,
+              bsize 16, 5 inner steps, 2048 points, 8 eval tasks), 4 steps
+              from a fresh init, validation against the exact solution
+              (every val_rel_err finite and below 1e3); then two unprofiled
+              steps and one profiled, and one step's peak memory without
+              remat
 Then a JSON line with every kernel's numbers (with the training and LEAP
 paths' launches), one with the training numbers and the total seconds, and
 last the ok line. A failed check raises: the exit code is then not 0. A
@@ -315,6 +352,46 @@ EM_TRAIN_CUTS = {"train.outer_steps": 500008, "train.steps_per_call": 3,
 EM_GNORM_TOL = 1e-5
 # the P1 interpolation, card against CPU, of the field's largest |value|
 P1_TOL = 1e-6
+# Steady Burgers: the committed MAML run (5x64, two outputs, 10 inner
+# steps, ground truth at resolution 48)
+SB_RUN = REPO / "results_sburgers_maml" / "sbi10_2"
+SB_CKPT = SB_RUN / "checkpoint_step_100001.pickle"
+SB_N_EVAL = 4
+SB_KS = (0, 10, 20, 40, 80)
+SB_ADAM_KS = (0, 50)
+# Median val_rel_err from the JAX package's deploy_bench on the CPU, on a
+# copy of sbi10_2 with its own config (FEM ground truth at resolution 48), 4
+# tasks, at the largest k of each protocol (commands and output in PERF.md):
+#   python -m metapde_tpu.cli.deploy_bench --algo=maml --from_run=<copy of sbi10_2> \
+#     --checkpoint=best --model.use_pallas_inference=true --task.n_eval=4 \
+#     --inner-steps-list=0,10,20,40,80
+JAX_CPU_SB_K80_MEDIAN = 0.005983772687613964
+#   ... --deploy.optimizer=adam --inner-steps-list=0,50 (the rest as above)
+JAX_CPU_SB_ADAM_K50_MEDIAN = 0.010178269818425179
+# card against CPU: the steady FEM solve (of the grid's largest |u|), and a
+# 2-task deployment at k = 10 on shared ground truths (relative): ten
+# learned-LR steps of the omega-30 chain carry f32 summation order into
+# the metrics (1.83e-5 on one H100, PERF.md), above a bar of 1e-5
+SB_GT_TOL = 1e-4
+SB_PARITY_RTOL = 1e-4
+SB_OVERRIDES = {"train.viz_every": 0, "model.use_pallas_inference": "true"}
+# resumed at sbi10_2's step 100001: 4 more outer steps in blocks of 2,
+# validation at 100003 and 100005 on 2 eval tasks (resolution 48)
+SB_TRAIN_CUTS = {"train.outer_steps": 100006, "train.steps_per_call": 2,
+                 "train.val_every": 2, "train.log_every": 2, "task.n_eval": 2}
+SB_TRAIN_BAR = 5e-2
+# poisson3d: pipeline/maml_meta_3d.sh at its one-chip width (its lines 5-6:
+# no task shards, bsize 16), validation against the exact solution
+P3D_FLAGS = ["--task.pde=poisson3d", "--model.num_layers=5", "--model.layer_size=128",
+             "--model.omega=30", "--model.omega0=30", "--maml.inner_steps=5",
+             "--maml.inner_lr=1e-4", "--maml.outer_lr=1e-5", "--maml.inner_grad_clip=100",
+             "--maml.grad_clip=100", "--maml.bsize=16", "--task.bc_weight=1.0",
+             "--task.inner_points=2048", "--task.outer_points=2048",
+             "--task.validation_points=2048", "--task.n_eval=8", "--train.optimizer=adam"]
+P3D_TRAIN_CUTS = {"train.outer_steps": 4, "train.steps_per_call": 2, "train.val_every": 2,
+                  "train.log_every": 2, "train.checkpoint_every": 4, "train.viz_every": 0,
+                  "model.use_pallas_inference": "true"}
+P3D_TRAIN_BAR = 1e3  # tests/test_poisson3d.py:123-145
 # H100 SXM published peaks (dense, at the 700 W limit): TF32 on the tensor
 # cores, f32 outside them, and HBM bandwidth. The SFU returns 16 sines per
 # clock per SM where the CUDA cores do 128 f32 FMAs (2 flops each): the CUDA
@@ -461,10 +538,18 @@ KERNEL_CASES = [  # (name, FieldConfig overrides, tasks, points, weights)
      "per_task"),
     ("lde2_3_path", dict(num_layers=10, layer_size=128, out_dim=2, squeeze_scalar=False), 16,
      1024, "per_task"),
+    # steady Burgers' validation: SB_N_EVAL tasks x 1024 points, two
+    # outputs, sbi10_2's 5x64 (resident)
+    ("sburgers_path", dict(num_layers=5, out_dim=2, squeeze_scalar=False), SB_N_EVAL, 1024,
+     "per_task"),
+    # poisson3d's validation: 8 tasks x 2048 points at in_dim 3, the
+    # pipeline's 5x128 (streamed)
+    ("poisson3d_path", dict(num_layers=5, layer_size=128, in_dim=3), 8, 2048, "per_task"),
 ]
 CROSSING = ("tasks_cross", "wide_deep_tasks")
 TIMED = ("main_path", "main_path_2pow20", "main_path_batched", "main_path_shared",
-         "tasks_cross", "leap_path", "burgers_path", "ldb3_path", "em7_9_path", "lde2_3_path")
+         "tasks_cross", "leap_path", "burgers_path", "ldb3_path", "em7_9_path", "lde2_3_path",
+         "sburgers_path", "poisson3d_path")
 # csrc/siren_fused.cu: points per (task, tile) item, and the most blocks of
 # its 256 threads an SM holds (2048 threads), so the most its persistent
 # grid can have per SM
@@ -562,6 +647,21 @@ def _deploy(tmp, args):
                               "--checkpoint=best", *args])
 
 
+def _deploy_parity(name, t0, gpu, cpu, rtol):
+    """Card rows against CPU rows of the same deployment: every metric
+    within `rtol` relative, or an error naming each one beyond it."""
+    rels = [(g["inner_steps"], key, g[key], c[key], abs(g[key] - c[key]) / abs(c[key]))
+            for g, c in zip(gpu, cpu)
+            for key in ("val_mse", "val_rel_err", "val_rel_err_median", "self_loss_mean")]
+    bad = [r for r in rels if not r[4] <= rtol]
+    if bad:
+        raise AssertionError(f"{name}: card vs cpu (k, metric, card, cpu, rel) beyond "
+                             f"{rtol}: {bad}")
+    emit(name, t0, rtol=rtol, worst_rel_diff=max(r[4] for r in rels),
+         card={r["inner_steps"]: r["val_rel_err_median"] for r in gpu},
+         cpu={r["inner_steps"]: r["val_rel_err_median"] for r in cpu})
+
+
 def phase_parity():
     """The same small deployment (2 tasks, FEM at resolution 8, k = 0 and 5)
     on the card and on the CPU: the tasks and points are drawn on the host,
@@ -573,17 +673,7 @@ def phase_parity():
     with tempfile.TemporaryDirectory() as tmp:
         gpu = _deploy(tmp, args)
         cpu = _deploy(tmp, ["--device=cpu", *args])
-    worst = 0.0
-    for g, c in zip(gpu, cpu):
-        for key in ("val_mse", "val_rel_err", "val_rel_err_median", "self_loss_mean"):
-            rel = abs(g[key] - c[key]) / abs(c[key])
-            worst = max(worst, rel)
-            if not rel <= PARITY_RTOL:
-                raise AssertionError(f"k={g['inner_steps']} {key}: card {g[key]} vs "
-                                     f"cpu {c[key]} (rel {rel} > {PARITY_RTOL})")
-    emit("parity", t0, rtol=PARITY_RTOL, worst_rel_diff=worst,
-         card={r["inner_steps"]: r["val_rel_err_median"] for r in gpu},
-         cpu={r["inner_steps"]: r["val_rel_err_median"] for r in cpu})
+    _deploy_parity("parity", t0, gpu, cpu, PARITY_RTOL)
 
 
 def _deploy_checked(tmp, name, deploy, ks, jax_median, n_eval=8, **numbers):
@@ -1411,17 +1501,7 @@ def phase_elasticity_parity():
     with tempfile.TemporaryDirectory() as tmp:
         gpu = _em_deploy(tmp, args)
         cpu = _em_deploy(tmp, ["--device=cpu", *args])
-    worst = 0.0
-    for g, c in zip(gpu, cpu):
-        for key in ("val_mse", "val_rel_err", "val_rel_err_median", "self_loss_mean"):
-            rel = abs(g[key] - c[key]) / abs(c[key])
-            worst = max(worst, rel)
-            if not rel <= PARITY_RTOL:
-                raise AssertionError(f"k={g['inner_steps']} {key}: card {g[key]} vs "
-                                     f"cpu {c[key]} (rel {rel} > {PARITY_RTOL})")
-    emit("elasticity_parity", t0, rtol=PARITY_RTOL, worst_rel_diff=worst,
-         card={r["inner_steps"]: r["val_rel_err_median"] for r in gpu},
-         cpu={r["inner_steps"]: r["val_rel_err_median"] for r in cpu})
+    _deploy_parity("elasticity_parity", t0, gpu, cpu, PARITY_RTOL)
 
 
 def phase_elasticity_deploy():
@@ -1532,6 +1612,247 @@ def phase_elasticity_train():
             "val_rel_err": recs[-1]["val_rel_err"], "gt_solved_read": gt_solved}
 
 
+def phase_steady_gt():
+    """One of sbi10_2's deployment tasks (host draws, deploy_bench's seed)
+    solved at the config's resolution 48 on the card and on the CPU, with
+    the solver's own constants (Jacobi-BiCGStab, krylov_max_iters 960); one
+    more solve on the card under torch.profiler; then the P1 evaluation on
+    the card against the CPU's at 1024 validation points."""
+    t0 = time.perf_counter()
+    cfg, pde, tasks = _eval_tasks(SB_RUN, 1)
+    res = cfg.solver.ground_truth_resolution
+
+    def solve(task):
+        return pde.solve(task, resolution=res)
+
+    g, g_s, g_steps, g_iters = _solve_counted(solve, tasks[0], "cuda")
+    c, c_s, c_steps, c_iters = _solve_counted(solve, tasks[0], "cpu")
+    scale = float(c.u_grid.abs().max())
+    err = float((g.u_grid.cpu() - c.u_grid).abs().max()) / scale
+    if not (bool(torch.isfinite(g.u_grid).all()) and err <= SB_GT_TOL):
+        raise AssertionError(f"resolution-{res} u_grid: card vs CPU {err} of the grid's max "
+                             f"(> {SB_GT_TOL}), or not finite")
+    on_card = tuple(a.to("cuda") for a in tasks[0])
+    newton.bicgstab.iterations = 0
+    prof = _profile(lambda: solve(on_card))
+    prof["krylov_iters"] = newton.bicgstab.iterations
+    prof["launches_per_krylov_iter"] = prof["launches"] / max(newton.bicgstab.iterations, 1)
+    pts = pde.sample_validation_points(torch.Generator().manual_seed(0), 1024, tasks[0], c)
+    cpu_vals = pde.evaluate_gt(c, pts)
+    card_gt = type(c)(*(a.to("cuda") for a in c))
+    card_vals, card_eval_s = _timed(lambda: pde.evaluate_gt(card_gt, pts.to("cuda")), "cuda")
+    p1_err = float((card_vals.cpu() - cpu_vals).abs().max()) / float(cpu_vals.abs().max())
+    if not (bool(torch.isfinite(card_vals).all()) and p1_err <= P1_TOL):
+        raise AssertionError(f"P1 on the card vs CPU {p1_err} of the field's max (> {P1_TOL})")
+    row = {"resolution": res, "card_s": g_s, "cpu_s": c_s, "newton_steps": g_steps,
+           "krylov_iters": g_iters, "cpu_newton_steps": c_steps, "cpu_krylov_iters": c_iters,
+           "residual_norm": float(g.residual_norm), "cpu_residual_norm": float(c.residual_norm),
+           "rel_err": err, "p1_card_vs_cpu": p1_err, "p1_card_s": card_eval_s,
+           "dead_elements": float((1 - g.elem_alive).mean())}
+    emit("steady_gt", t0, tol=SB_GT_TOL, tol_p1=P1_TOL, task=row, solve_profiled=prof,
+         host_threads=torch.get_num_threads())
+    return {**row, "launches_per_krylov_iter": prof["launches_per_krylov_iter"],
+            "idle_share": prof["idle_share"]}
+
+
+def _sb_deploy(tmp, args):
+    """deploy_bench.main --algo=maml on a copy of sbi10_2 under `tmp` (its
+    best checkpoint and config)."""
+    run_dir = _run_copy(tmp, SB_RUN, ("checkpoint_best.pickle", "config.json"))
+    return deploy_bench.main(["--algo=maml", f"--from_run={run_dir}", "--checkpoint=best",
+                              "--model.use_pallas_inference=true", *args])
+
+
+def phase_steady_parity():
+    """A 2-task sbi10_2 deployment at k = 0 and 10 on the card and on the
+    CPU, the same host draws; the CPU reads the card's ground truths from
+    gt_cache_torch/, so the two differ only in the adaptation and the
+    inference."""
+    t0 = time.perf_counter()
+    args = ["--task.n_eval=2", "--inner-steps-list=0,10", "--repeats=1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        gpu = _sb_deploy(tmp, args)
+        cpu = _sb_deploy(tmp, ["--device=cpu", *args])
+    _deploy_parity("steady_parity", t0, gpu, cpu, SB_PARITY_RTOL)
+
+
+def phase_steady_deploy():
+    """The sbi10_2 command (best checkpoint, SB_N_EVAL fresh tasks, k = 0,
+    10, 20, 40, 80, ground truth at resolution 48 through gt_cache_torch/),
+    then the same tasks with --deploy.optimizer=adam at k = 0, 50 from the
+    cached ground truths (steady_deploy_adam)."""
+    plan = _plan_of(SB_RUN)
+    with tempfile.TemporaryDirectory() as tmp:
+        def sb(ks, extra=()):
+            return _sb_deploy(tmp, [f"--task.n_eval={SB_N_EVAL}",
+                                    "--inner-steps-list=" + ",".join(map(str, ks)),
+                                    f"--repeats={DEPLOY_REPEATS}", *extra])
+
+        newton.newton_krylov.steps, newton.bicgstab.iterations = 0, 0
+        launches, _ = _deploy_checked(tmp, "steady_deploy", lambda: sb(SB_KS), SB_KS,
+                                      JAX_CPU_SB_K80_MEDIAN, n_eval=SB_N_EVAL, plan=plan)
+        solve_counts = (newton.newton_krylov.steps, newton.bicgstab.iterations)
+        newton.newton_krylov.steps = 0
+        adam_launches, _ = _deploy_checked(
+            tmp, "steady_deploy_adam", lambda: sb(SB_ADAM_KS, ["--deploy.optimizer=adam"]),
+            SB_ADAM_KS, JAX_CPU_SB_ADAM_K50_MEDIAN, n_eval=SB_N_EVAL,
+            steady_deploy_gt_newton_krylov=solve_counts)
+        if newton.newton_krylov.steps:
+            raise AssertionError(f"the adam pass ran {newton.newton_krylov.steps} Newton "
+                                 "steps: its ground truths were not read from the cache")
+    return launches, adam_launches
+
+
+def phase_steady_train():
+    """cli/maml_pde on a copy of sbi10_2's config.json at its full width
+    (bsize 8, 10 inner steps, remat, 1024 points), resumed from its
+    checkpoint_step_100001.pickle with both Adam states: 4 outer steps,
+    validation through the kernel on 2 eval tasks at resolution 48, a final
+    checkpoint; then the step's numbers."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = _run_copy(tmp, SB_RUN, ("config.json", SB_CKPT.name))
+        out = Path(tmp) / "out"
+        cuts = {**SB_TRAIN_CUTS, **SB_OVERRIDES}
+        args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in cuts.items()),
+                f"--train.out_dir={out}", "--train.expt_name=smoke"]
+        siren_fused.siren_apply_fused_batched.launches = 0
+        newton.newton_krylov.steps, newton.bicgstab.iterations = 0, 0
+        maml_pde.main(args)
+        torch.cuda.synchronize()
+        launches = siren_fused.siren_apply_fused_batched.launches
+        solve_counts = (newton.newton_krylov.steps, newton.bicgstab.iterations)
+        run = out / "smoke"
+        last = SB_TRAIN_CUTS["train.outer_steps"]
+        for f in ("log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
+                  f"checkpoint_step_{last}.pickle"):
+            if not (run / f).exists():
+                raise AssertionError(f"the steady Burgers training run wrote no {f}")
+        if "resuming optimizer state at step 100002" not in (run / "log.txt").read_text():
+            raise AssertionError("log.txt lacks the resume from step 100002")
+        recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+        jax_keys = sorted(json.loads((SB_RUN / "metrics.jsonl").read_text().splitlines()[0]))
+        if not recs or sorted(recs[0]) != jax_keys:
+            raise AssertionError(f"metrics.jsonl keys {sorted(recs[0]) if recs else []} != "
+                                 f"the JAX run's {jax_keys}")
+        if [r["step"] for r in recs] != [100003, 100005]:
+            raise AssertionError(f"validation records at {[r['step'] for r in recs]}")
+        for r in recs:
+            for k in ("meta_loss", "val_meta_loss", "val_rel_err", "val_mse"):
+                if not math.isfinite(r[k]):
+                    raise AssertionError(f"step {r['step']}: {k} = {r[k]}")
+            if not r["val_rel_err"] < SB_TRAIN_BAR:
+                raise AssertionError(f"step {r['step']}: val_rel_err {r['val_rel_err']} >= "
+                                     f"{SB_TRAIN_BAR}")
+        if launches != len(recs):
+            raise AssertionError(f"the steady Burgers training path launched siren_fused "
+                                 f"{launches} times for {len(recs)} validation calls")
+        ckpt_keys = _check_final_checkpoint(run / f"checkpoint_step_{last}.pickle", SB_CKPT)
+        gt_solved = _gt_log(run)
+        final = checkpoints.load_checkpoint(str(run / f"checkpoint_step_{last}.pickle"))
+    cfg = parse_overrides(load_run_config(str(SB_RUN)), ["--train.viz_every=0"])
+    state = (params_from_numpy(final["params"], "cuda"),
+             params_from_numpy(final["inner_lrs"], "cuda"),
+             *(params_from_numpy(final[f"torch_{k}"], "cuda", dtype=None)
+               for k in ("opt_state", "lr_opt_state")))
+    bench = _step_numbers(cfg, maml_driver.build(cfg, "cuda"), state,
+                          lambda o: (o[:4], o[5][0].mean()))
+    step_s = statistics.mean(r["step_time"] for r in recs)
+    emit("steady_train", t0, reduced=cuts, launches=launches, validations=len(recs),
+         gt_solved_read=gt_solved, gt_newton_krylov=solve_counts,
+         meta_loss=[r["meta_loss"] for r in recs],
+         val_rel_err=[r["val_rel_err"] for r in recs],
+         val_rel_err_median=[r["val_rel_err_median"] for r in recs],
+         per_dim_rel_err=[r["per_dim_rel_err"] for r in recs],
+         deployment_time=[r["deployment_time"] for r in recs],
+         step_time=[r["step_time"] for r in recs], steps_per_s=1.0 / step_s,
+         checkpoint_keys=ckpt_keys, bench=bench)
+    return {"launches": launches, "steps_per_s": 1.0 / step_s, **bench,
+            "deployment_time": recs[-1]["deployment_time"],
+            "val_rel_err": recs[-1]["val_rel_err"], "gt_solved_read": gt_solved}
+
+
+def phase_poisson3d_parity():
+    """train_parity on poisson3d at the pipeline's 5x128 (5 inner steps),
+    cut to bsize 2 and 256 points: 3 outer steps on the card and on the
+    CPU on the same host draws, TF32 off."""
+    t0 = time.perf_counter()
+    cfg = parse_overrides(Config(), P3D_FLAGS + ["--maml.bsize=2", "--task.inner_points=256",
+                                                 "--task.outer_points=256"])
+    c = maml_driver.build(cfg, "cpu")
+    state = (c["init_params"], c["inner_lrs"], c["outer_opt"].init(c["init_params"]),
+             c["lr_opt"].init(c["inner_lrs"]))
+    rows, t_card, t_cpu = _train_both(cfg, 3, state)
+    emit("poisson3d_parity", t0, leaf_tol=TRAIN_LEAF_TOL, loss_rtol=TRAIN_LOSS_RTOL,
+         steps=rows, card_s=t_card, cpu_s=t_cpu)
+
+
+def phase_poisson3d_train():
+    """cli/maml_pde --task.pde=poisson3d at the pipeline's one-chip width
+    (5x128, bsize 16, 5 inner steps, 2048 inner, outer and validation
+    points, 8 eval tasks) from a fresh init: 4 outer steps in blocks of 2,
+    validation through the kernel (in_dim 3) against the exact solution;
+    then the step's numbers, and one step's peak memory without remat."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "out"
+        args = [*P3D_FLAGS, *(f"--{k}={v}" for k, v in P3D_TRAIN_CUTS.items()),
+                f"--train.out_dir={out}", "--train.expt_name=smoke"]
+        siren_fused.siren_apply_fused_batched.launches = 0
+        maml_pde.main(args)
+        torch.cuda.synchronize()
+        launches = siren_fused.siren_apply_fused_batched.launches
+        run = out / "smoke"
+        last = P3D_TRAIN_CUTS["train.outer_steps"]
+        for f in ("log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
+                  f"checkpoint_step_{last}.pickle"):
+            if not (run / f).exists():
+                raise AssertionError(f"the poisson3d training run wrote no {f}")
+        recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+        if [r["step"] for r in recs] != [1, 3]:
+            raise AssertionError(f"validation records at {[r['step'] for r in recs]}")
+        for r in recs:
+            for k in ("meta_loss", "val_meta_loss", "val_rel_err", "val_mse"):
+                if not math.isfinite(r[k]):
+                    raise AssertionError(f"step {r['step']}: {k} = {r[k]}")
+            if not r["val_rel_err"] < P3D_TRAIN_BAR:
+                raise AssertionError(f"step {r['step']}: val_rel_err {r['val_rel_err']} >= "
+                                     f"{P3D_TRAIN_BAR}")
+        if launches != len(recs):
+            raise AssertionError(f"the poisson3d training path launched siren_fused "
+                                 f"{launches} times for {len(recs)} validation calls")
+        gt_solved = _gt_log(run)
+        final = checkpoints.load_checkpoint(str(run / f"checkpoint_step_{last}.pickle"))
+    cfg = parse_overrides(Config(), P3D_FLAGS + ["--train.viz_every=0"])
+    state = (params_from_numpy(final["params"], "cuda"),
+             params_from_numpy(final["inner_lrs"], "cuda"),
+             *(params_from_numpy(final[f"torch_{k}"], "cuda", dtype=None)
+               for k in ("opt_state", "lr_opt_state")))
+    bench = _step_numbers(cfg, maml_driver.build(cfg, "cuda"), state,
+                          lambda o: (o[:4], o[5][0].mean()))
+    # the same step without remat (train.remat_inner_steps=false): its peak
+    no_remat = maml_driver.build(
+        parse_overrides(cfg, ["--train.remat_inner_steps=false"]), "cuda")
+    batch = no_remat["draw_step_inputs"](torch.Generator().manual_seed(cfg.seed + 29))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, no_remat_s = _timed(lambda: no_remat["step_core"](batch, *state), "cuda")
+    no_remat_peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.mean(r["step_time"] for r in recs)
+    emit("poisson3d_train", t0, reduced=P3D_TRAIN_CUTS, launches=launches,
+         validations=len(recs), gt_solved_read=gt_solved,
+         meta_loss=[r["meta_loss"] for r in recs],
+         val_rel_err=[r["val_rel_err"] for r in recs],
+         val_rel_err_median=[r["val_rel_err_median"] for r in recs],
+         deployment_time=[r["deployment_time"] for r in recs],
+         step_time=[r["step_time"] for r in recs], steps_per_s=1.0 / step_s, bench=bench,
+         no_remat_step_s=no_remat_s, no_remat_max_memory_allocated_bytes=no_remat_peak)
+    return {"launches": launches, "steps_per_s": 1.0 / step_s, **bench,
+            "no_remat_max_memory_allocated_bytes": no_remat_peak,
+            "deployment_time": recs[-1]["deployment_time"],
+            "val_rel_err": recs[-1]["val_rel_err"], "gt_solved_read": gt_solved}
+
+
 PHASES = {
     "kernel": phase_kernel, "parity": phase_parity, "deploy": phase_deploy,
     "ground_truth_mg": phase_ground_truth_mg, "deploy_mg": phase_deploy_mg,
@@ -1545,7 +1866,10 @@ PHASES = {
     "elasticity_gt": phase_elasticity_gt, "elasticity_parity": phase_elasticity_parity,
     "elasticity_deploy": phase_elasticity_deploy,
     "leap_elasticity_deploy": phase_leap_elasticity_deploy,
-    "elasticity_train": phase_elasticity_train,
+    "elasticity_train": phase_elasticity_train, "steady_gt": phase_steady_gt,
+    "steady_parity": phase_steady_parity, "steady_deploy": phase_steady_deploy,
+    "steady_train": phase_steady_train, "poisson3d_parity": phase_poisson3d_parity,
+    "poisson3d_train": phase_poisson3d_train,
 }
 
 
@@ -1580,6 +1904,12 @@ def main(argv):
     elasticity_deploy_launches = phase_elasticity_deploy()
     leap_elasticity_deploy_launches = phase_leap_elasticity_deploy()
     elasticity_train = phase_elasticity_train()
+    steady_gt = phase_steady_gt()
+    phase_steady_parity()
+    steady_deploy_launches, steady_deploy_adam_launches = phase_steady_deploy()
+    steady_train = phase_steady_train()
+    phase_poisson3d_parity()
+    poisson3d_train = phase_poisson3d_train()
     main_row, big = kern["main_path_batched"], kern["main_path_2pow20"]
     timing_keys = ("ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
                    "bound_f32_ms")
@@ -1623,6 +1953,13 @@ def main(argv):
         **{f"at_{case[:-5]}_shape": {k: kern[case][k] for k in (
             "tasks", "n", "max_abs_err", *timing_keys, "resident", "smem_bytes",
             "blocks_per_sm", "n_sm")} for case in ("em7_9_path", "lde2_3_path")},
+        "steady_deploy_launches": steady_deploy_launches,
+        "steady_deploy_adam_launches": steady_deploy_adam_launches,
+        "steady_train_launches": steady_train["launches"],
+        "poisson3d_train_launches": poisson3d_train["launches"],
+        **{f"at_{case[:-5]}_shape": {k: kern[case][k] for k in (
+            "tasks", "n", "max_abs_err", *timing_keys, "resident", "smem_bytes",
+            "blocks_per_sm", "n_sm")} for case in ("sburgers_path", "poisson3d_path")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"training": {"train": train,
@@ -1632,7 +1969,10 @@ def main(argv):
                                    "burgers_train": burgers_train,
                                    "burgers_gt": burgers_gt,
                                    "elasticity_train": elasticity_train,
-                                   "elasticity_gt": elasticity_gt},
+                                   "elasticity_gt": elasticity_gt,
+                                   "steady_train": steady_train,
+                                   "steady_gt": steady_gt,
+                                   "poisson3d_train": poisson3d_train},
                       "ground_truth_mg": gt_mg,
                       "total_s": time.perf_counter() - T_START}), flush=True)
     print(json.dumps({"ok": True, "device": {

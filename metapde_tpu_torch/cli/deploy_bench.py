@@ -25,12 +25,18 @@ the FEM ground truth:
         --model.use_pallas_inference=true --task.n_eval=8 \
         --inner-steps-list=0,1,2,5 --energy_audit
 
+    python -m metapde_tpu_torch.cli.deploy_bench --algo=maml \
+        --from_run=results_sburgers_maml/sbi10_2 --checkpoint=best \
+        --model.use_pallas_inference=true --task.n_eval=4 \
+        --inner-steps-list=0,10,20,40,80
+
 (resolution 32 is the one p30k_f32_s1 trained with; from 32 up the FEM
 solve takes the multigrid preconditioner; a td_burgers run's ground truth
 is its FV solve at its own resolution, all eval tasks in one time loop; a
 hyper_elasticity run's is the sparse-direct solve on the host at its
 resolution raised by the ligament floor, and its validation scores the
-mirrored field too). Runs on CUDA unless given
+mirrored field too; a steady_burgers run's is the FEM solve on the device
+at its resolution (sbi10_2: 48), a poisson3d run's the exact solution). Runs on CUDA unless given
 --device=cpu. Prints one JSON row per k, with the JAX CLI's keys plus the
 device, and writes them to
 deploy_bench_torch[_<deploy.optimizer>][_<compute_dtype>]_n<n_eval>[_best].jsonl

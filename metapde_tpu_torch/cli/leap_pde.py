@@ -7,8 +7,8 @@
 
 The JAX CLI's flags (dotted config paths, config.parse_overrides, including
 --from_run=DIR) plus --device=NAME: CUDA unless given --device=cpu.
---task.pde is poisson or td_burgers (results_burgers_leap/ldb3_2 is the
-committed 10x128 LEAP run of the latter).
+--task.pde is any family of the JAX package (results_burgers_leap/ldb3_2
+and results_elasticity_leap/lde2_3 are committed 10x128 LEAP runs).
 """
 
 import sys

@@ -7,11 +7,16 @@
 
 The JAX CLI's flags (dotted config paths, config.parse_overrides, including
 --from_run=DIR) plus --device=NAME: CUDA unless given --device=cpu.
---task.pde is poisson or td_burgers; a td_burgers run validates against
-the FV ground truth and writes the per-timestep error to metrics.jsonl:
+--task.pde is any family of the JAX package (poisson, td_burgers,
+hyper_elasticity, steady_burgers, poisson3d); a td_burgers run validates
+against the FV ground truth and writes the per-timestep error to
+metrics.jsonl:
 
     python -m metapde_tpu_torch.cli.maml_pde --from_run=results_burgers_maml/bm7_5 \
         --train.outer_steps=500011 --train.viz_every=0 --train.expt_name=more
+
+and a poisson3d run validates against the exact manufactured solution
+(pipeline/maml_meta_3d.sh's flags, without the mesh on one card).
 """
 
 import sys

@@ -46,8 +46,8 @@ def solve_many(pde, params_list, resolution):
 
 
 def get_pde(cfg: TaskConfig) -> PdeDef:
-    """Build the PdeDef for cfg.pde. "poisson", "td_burgers" and
-    "hyper_elasticity" are ported."""
+    """Build the PdeDef for cfg.pde in {poisson, td_burgers,
+    hyper_elasticity, steady_burgers, poisson3d}."""
     if cfg.pde == "poisson":
         from . import poisson
 
@@ -60,6 +60,12 @@ def get_pde(cfg: TaskConfig) -> PdeDef:
         from . import hyper_elasticity
 
         return hyper_elasticity.make_pde(cfg)
-    if cfg.pde in ("steady_burgers", "poisson3d"):
-        raise NotImplementedError(f"pde {cfg.pde!r} is not ported yet")
+    if cfg.pde == "steady_burgers":
+        from . import steady_burgers
+
+        return steady_burgers.make_pde(cfg)
+    if cfg.pde == "poisson3d":
+        from . import poisson3d
+
+        return poisson3d.make_pde(cfg)
     raise ValueError(f"unrecognized pde: {cfg.pde!r}")

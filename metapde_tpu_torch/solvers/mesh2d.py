@@ -145,6 +145,43 @@ def snapped_geometry(tris, coords0, per_hole_params, n_holes, cell_h, boundary_f
                     node_alive=node_alive)
 
 
+class PoreLattice(NamedTuple):
+    """The snapped lattice of the rectangle with its boundary rows, as the
+    steady-Burgers solver and its multigrid levels use them."""
+
+    tris: torch.Tensor       # [E, 3] long
+    geom: Geometry
+    on_inlet: torch.Tensor   # [N] bool, x = xmin
+    on_outlet: torch.Tensor  # [N] bool, x = xmax
+    noslip: torch.Tensor     # [N] bool: walls, pore-boundary and dead nodes
+
+
+def pore_lattice(resolution, xmin, xmax, ymin, ymax, per_hole_params, n_holes) -> PoreLattice:
+    """The lattice at `resolution` snapped to the pores, on the pore params'
+    device and in their dtype. A pore-boundary node is an alive node that
+    touches a dead element: with snapping it sits on the pore boundary."""
+    dev, dt = per_hole_params.device, per_hole_params.dtype
+    tris_np = mesh_topology(resolution)
+    tris = torch.as_tensor(tris_np, dtype=torch.long, device=dev)
+    coords0 = torch.as_tensor(node_coords(resolution, xmin, xmax, ymin, ymax), dtype=dt,
+                              device=dev)
+
+    def on(axis, v):
+        return torch.isclose(coords0[:, axis], torch.tensor(v, dtype=dt, device=dev))
+
+    on_inlet, on_outlet = on(0, xmin), on(0, xmax)
+    on_walls = on(1, ymin) | on(1, ymax)
+    geom = snapped_geometry(tris_np, coords0, per_hole_params, n_holes,
+                            min(xmax - xmin, ymax - ymin) / resolution,
+                            boundary_fixed=on_inlet | on_outlet | on_walls)
+    n_nodes = coords0.shape[0]
+    alive_min = torch.zeros(n_nodes, dtype=dt, device=dev).scatter_reduce(
+        0, tris.reshape(-1), geom.elem_alive.repeat_interleave(3), "amin", include_self=False)
+    noslip = on_walls | (alive_min < 0.5) | (geom.node_alive < 0.5)
+    return PoreLattice(tris=tris, geom=geom, on_inlet=on_inlet, on_outlet=on_outlet,
+                       noslip=noslip)
+
+
 _OFFS = (-1, 0, 1)
 
 

@@ -1,5 +1,5 @@
-"""Matrix-free geometric multigrid for the Poisson star-domain FEM solver
-(counterpart of metapde_tpu/solvers/multigrid.py, the polar half).
+"""Matrix-free geometric multigrid for the structured-chart FEM solvers
+(counterpart of metapde_tpu/solvers/multigrid.py).
 
 In f32, Jacobi-preconditioned BiCGStab stagnates once the stiffness
 condition number outruns the precision (the JAX package moved to multigrid
@@ -25,14 +25,19 @@ coarsest level's sweeps, a fixed linear map of a few hundred unknowns, are
 applied as the dense matrix they make. Sums run in other orders, so the
 results agree with the JAX package's to round-off.
 
-The rectangular-lattice levels of the JAX module (make_rect_mg_preconditioner)
-serve only the hyperelastic and steady-Burgers solvers and are not ported.
+The rectangular-lattice levels (make_rect_mg_preconditioner) are the same
+V-cycle on the snapped pore lattices of mesh2d, with vertex-centred full
+weighting and bilinear prolongation; a vector field's components go through
+one V-cycle together as the columns of an [n, components] block, the JAX
+package's per-component cycles.
 """
 
 from functools import partial
 from typing import Callable, NamedTuple, Tuple
 
 import torch
+
+from .mesh2d import pore_lattice
 
 
 class Level(NamedTuple):
@@ -91,6 +96,11 @@ def prolong(u, coarse: Level, fine: Level):
     return _grid_to_vec(c, _prolong_theta(rf, fine.nt))
 
 
+def _col(v, like):
+    """A node vector v [n] as a column [n, 1] when `like` holds columns."""
+    return v if like.ndim == 1 else v[:, None]
+
+
 def _smooth(level, x, rhs, sweeps, winv):
     """`sweeps` damped-Jacobi sweeps x += damping * (rhs - A x) / diag, with
     winv = damping / diag; x = None is the zero guess, whose first sweep is
@@ -104,28 +114,33 @@ def _smooth(level, x, rhs, sweeps, winv):
 
 
 def vcycle(levels: Tuple[Level, ...], coarse_matrix, b, pre_sweeps=2, post_sweeps=2,
-           damping=0.7):
-    """One multigrid V-cycle for A x = b with zero initial guess.
+           damping=0.7, restrict_fn=None, prolong_fn=None):
+    """One multigrid V-cycle for A x = b with zero initial guess; b is a
+    node vector [n] or a block of columns [n, B], each cycled alone.
 
     A fixed linear operator in b (required for Krylov preconditioning). The
     coarsest level applies `coarse_matrix` (coarse_sweep_matrix: the linear
-    map of its damped-Jacobi sweeps from the zero guess).
+    map of its damped-Jacobi sweeps from the zero guess). Transfers default
+    to the polar (center, rings) pair; the rect-lattice levels pass theirs.
     """
+    rfn = restrict if restrict_fn is None else restrict_fn
+    pfn = prolong if prolong_fn is None else prolong_fn
 
     def cycle(li, rhs):
         if li == len(levels) - 1:
             return coarse_matrix @ rhs
         level = levels[li]
-        winv = damping / level.diag
+        winv = _col(damping / level.diag, rhs)
+        mask = _col(level.bdry_mask, rhs)
         x = _smooth(level, None, rhs, pre_sweeps, winv)
         res = rhs - level.apply(x)
         # Dirichlet rows are exact after smoothing (identity rows); keep
         # their coarse correction at zero
-        res = torch.where(level.bdry_mask, 0.0, res)
+        res = torch.where(mask, 0.0, res)
         coarse = levels[li + 1]
-        cres = torch.where(coarse.bdry_mask, 0.0, restrict(res, level, coarse))
+        cres = torch.where(_col(coarse.bdry_mask, rhs), 0.0, rfn(res, level, coarse))
         corr = cycle(li + 1, cres)
-        x = x + torch.where(level.bdry_mask, 0.0, prolong(corr, coarse, level))
+        x = x + torch.where(mask, 0.0, pfn(corr, coarse, level))
         return _smooth(level, x, rhs, post_sweeps, winv)
 
     return cycle(0, b)
@@ -203,3 +218,89 @@ def make_polar_mg_preconditioner(geo_params, resolution: int, pre_sweeps=2,
     C = coarse_sweep_matrix(levels[-1], coarse_sweeps, damping)
     return partial(vcycle, levels, C, pre_sweeps=pre_sweeps, post_sweeps=post_sweeps,
                    damping=damping)
+
+
+class RectLevel(NamedTuple):
+    apply: Callable          # linear operator on node vectors [m*m] (or [m*m, B])
+    diag: torch.Tensor
+    m: int                   # nodes per side (resolution + 1)
+    bdry_mask: torch.Tensor  # constrained rows (identity in the operator)
+
+
+def _rect_restrict(u, fine: RectLevel, coarse: RectLevel):
+    """Vertex-centred full weighting on the lattice, m_f -> m_c (zero
+    outside), of [m*m] or [m*m, B]."""
+    g = u.reshape(fine.m, fine.m, -1)
+    gp = torch.nn.functional.pad(g, (0, 0, 1, 1, 1, 1))
+    s = (4.0 * gp[1:-1, 1:-1]
+         + 2.0 * (gp[:-2, 1:-1] + gp[2:, 1:-1] + gp[1:-1, :-2] + gp[1:-1, 2:])
+         + (gp[:-2, :-2] + gp[:-2, 2:] + gp[2:, :-2] + gp[2:, 2:])) / 16.0
+    return s[::2, ::2].reshape((-1,) + tuple(u.shape[1:]))
+
+
+def _rect_prolong(u, coarse: RectLevel, fine: RectLevel):
+    """Bilinear interpolation on the lattice, m_c -> m_f, of [m*m] or
+    [m*m, B]."""
+    gc = u.reshape(coarse.m, coarse.m, -1)
+    out = torch.zeros((fine.m, fine.m, gc.shape[2]), dtype=gc.dtype, device=gc.device)
+    out[::2, ::2] = gc
+    out[1::2, ::2] = 0.5 * (gc[:-1, :] + gc[1:, :])
+    out[::2, 1::2] = 0.5 * (gc[:, :-1] + gc[:, 1:])
+    out[1::2, 1::2] = 0.25 * (gc[:-1, :-1] + gc[1:, :-1] + gc[:-1, 1:] + gc[1:, 1:])
+    return out.reshape((-1,) + tuple(u.shape[1:]))
+
+
+def rect_resolutions(resolution: int, min_resolution: int = 8):
+    """resolution, resolution/2, ... while the next stays >= min_resolution
+    and even."""
+    out, r = [], resolution
+    while r >= min_resolution * 2 and r % 2 == 0:
+        out.append(r)
+        r //= 2
+    out.append(r)
+    return out
+
+
+def rect_levels(per_hole_params, n_holes, resolution: int, xmin, xmax, ymin, ymax,
+                coeff=1.0, min_resolution: int = 8):
+    """The multigrid levels of the snapped pore lattice at resolution,
+    resolution/2, ...: each level's own snapped mesh (mesh2d), the
+    coeff-scaled unit stiffness operator on its alive elements in CSR, and
+    its constrained rows (outer rectangle, pore-boundary and dead nodes) as
+    identity rows; on the pore params' device and in their dtype."""
+    dev, dt = per_hole_params.device, per_hole_params.dtype
+    levels = []
+    for res in rect_resolutions(resolution, min_resolution):
+        lattice = pore_lattice(res, xmin, xmax, ymin, ymax, per_hole_params, n_holes)
+        tris, geom = lattice.tris, lattice.geom
+        flat = tris.reshape(-1)
+        n_nodes = geom.coords.shape[0]
+        bdry_mask = lattice.on_inlet | lattice.on_outlet | lattice.noslip
+        weight = coeff * geom.area * geom.elem_alive
+        A = _stiffness_csr(tris, geom.gradphi, weight, n_nodes, bdry_mask)
+        diag_elem = weight[:, None] * torch.sum(geom.gradphi ** 2, dim=2)
+        diag = torch.zeros(n_nodes, dtype=dt, device=dev).index_add(0, flat, diag_elem.reshape(-1))
+        diag = torch.where(bdry_mask, torch.ones_like(diag), torch.clamp(diag, min=1e-12))
+        levels.append(RectLevel(apply=partial(torch.matmul, A), diag=diag, m=res + 1,
+                                bdry_mask=bdry_mask))
+    return tuple(levels)
+
+
+def make_rect_mg_preconditioner(per_hole_params, n_holes, resolution: int, xmin, xmax,
+                                ymin, ymax, coeff=1.0, min_resolution: int = 8,
+                                vector_dim: int = 1, pre_sweeps=2, post_sweeps=2,
+                                coarse_sweeps=40, damping=0.7):
+    """V-cycle preconditioner for the snapped-lattice pore-domain solvers
+    (fem_steady_burgers). For vector_dim > 1 a node-major vector [n * dim]
+    is cycled as the block [n, dim]: the scalar V-cycle on each component
+    (block-diagonal; the coupling between components is left to the outer
+    Krylov iteration). Returns M: v -> approx A^{-1} v."""
+    levels = rect_levels(per_hole_params, n_holes, resolution, xmin, xmax, ymin, ymax,
+                         coeff=coeff, min_resolution=min_resolution)
+    C = coarse_sweep_matrix(levels[-1], coarse_sweeps, damping)
+    scalar_cycle = partial(vcycle, levels, C, pre_sweeps=pre_sweeps, post_sweeps=post_sweeps,
+                           damping=damping, restrict_fn=_rect_restrict,
+                           prolong_fn=_rect_prolong)
+    if vector_dim == 1:
+        return scalar_cycle
+    return lambda v: scalar_cycle(v.reshape(-1, vector_dim)).reshape(-1)

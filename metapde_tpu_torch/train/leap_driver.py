@@ -32,10 +32,10 @@ resume from the port's or the JAX package's LEAP checkpoints (the JAX one's
 Adam state carries over). Its NaN abort reads the per-step meta-losses
 (the last column of the loss history) also for a block of one step, where
 the JAX driver reads the mean of the whole history: a NaN loss gives NaN
-params and so a NaN last loss. The families are poisson, td_burgers and
-hyper_elasticity; deploy.n_starts > 1 wraps the deployment in the
-multi-start (train/multistart.py). Not ported: a mesh, viz_every,
-profile_dir and the other families; each raises NotImplementedError.
+params and so a NaN last loss. Every family of the JAX package trains;
+deploy.n_starts > 1 wraps the deployment in the multi-start
+(train/multistart.py). Not ported: a mesh, viz_every and profile_dir;
+each raises NotImplementedError.
 """
 
 import torch

@@ -71,9 +71,6 @@ def problem(cfg: Config):
     return pde, model_cfg, field, loss_fn, task_loss
 
 
-TRAINED_PDES = ("poisson", "td_burgers", "hyper_elasticity")
-
-
 def validation_kwargs(task_cfg):
     """make_validation_fn's family options, by the JAX drivers' and
     deploy_bench's rule: td_burgers' per-timestep metric over num_tsteps,
@@ -83,9 +80,6 @@ def validation_kwargs(task_cfg):
 
 
 def check_run_options(cfg: Config):
-    if cfg.task.pde not in TRAINED_PDES:
-        raise NotImplementedError(f"training pde {cfg.task.pde!r}: only {TRAINED_PDES} "
-                                  "are ported")
     if cfg.train.viz_every > 0 and cfg.train.expt_name is not None:
         raise NotImplementedError("viz_every: the ground-truth plots (train/viz.py) are "
                                   "not ported yet; pass --train.viz_every=0")

@@ -30,12 +30,12 @@ Deployment takes the learned-LR rollout, or with cfg.deploy.optimizer set
 k steps of a fresh optimizer (train/deploy.py), which adapts all tasks in
 one batched call.
 
-The families are poisson, td_burgers and hyper_elasticity (their point
-kinds, each [T, sets, n_kind, 2], go through the same TaskBatch).
+Every family of the JAX package trains (its point kinds, each
+[T, sets, n_kind, in_dim], go through the same TaskBatch).
 deploy.n_starts > 1 wraps the deployment in the multi-start
 (train/multistart.py). Not ported: a mesh (mesh.n_task_shards or
-n_point_shards > 1), viz_every, profile_dir and the other families; each
-raises NotImplementedError.
+n_point_shards > 1), viz_every and profile_dir; each raises
+NotImplementedError.
 """
 
 import torch

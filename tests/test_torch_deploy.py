@@ -251,10 +251,12 @@ def test_deploy_bench_raises_for_unported_options(tmp_path):
     base = ["--device=cpu", f"--train.load_model_from_expt={tmp_path}"]
     with pytest.raises(ValueError, match="--algo"):
         deploy_bench.main(base + ["--algo=reptile"])
-    with pytest.raises(NotImplementedError):
-        deploy_bench.main(base + ["--task.pde=steady_burgers"])
-    with pytest.raises(NotImplementedError):
-        deploy_bench.main(base + ["--algo=leap", "--task.pde=poisson3d"])
+    # every family of the JAX package is ported; an unknown name raises
+    # ValueError, as the JAX registry does
+    with pytest.raises(ValueError, match="unrecognized pde"):
+        deploy_bench.main(base + ["--task.pde=heat"])
+    with pytest.raises(ValueError, match="unrecognized pde"):
+        deploy_bench.main(base + ["--algo=leap", "--task.pde=heat"])
 
 
 LEAP_RUN = Path(__file__).resolve().parents[1] / "results_poisson_leap" / "lp2_4"

@@ -46,6 +46,10 @@ def _forbidden(name):
 def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _modules()
     assert "metapde_tpu_torch.cli.deploy_bench" in mods
+    # the walk reaches every family and solver module
+    assert {"metapde_tpu_torch.pdes.steady_burgers", "metapde_tpu_torch.pdes.poisson3d",
+            "metapde_tpu_torch.solvers.fem_steady_burgers",
+            "metapde_tpu_torch.solvers.interpolation"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -172,8 +176,10 @@ def test_config_copy_equals_the_jax_package_config():
     ours = config_mod.parse_overrides(config_mod.Config(), flags)
     theirs = j_config.parse_overrides(j_config.Config(), flags)
     assert ours.to_json() == theirs.to_json()
-    run_dir = REPO / "results_poisson_maml" / "p30k_f32_s1"
-    assert (config_mod.parse_overrides(config_mod.Config(), [f"--from_run={run_dir}"]).to_json()
-            == j_config.parse_overrides(j_config.Config(), [f"--from_run={run_dir}"]).to_json())
+    for run_dir in (REPO / "results_poisson_maml" / "p30k_f32_s1",
+                    REPO / "results_sburgers_maml" / "sbi10_2"):
+        assert (config_mod.parse_overrides(config_mod.Config(), [f"--from_run={run_dir}"])
+                .to_json() == j_config.parse_overrides(j_config.Config(),
+                                                       [f"--from_run={run_dir}"]).to_json())
     with pytest.raises(KeyError):
         config_mod.parse_overrides(config_mod.Config(), ["--maml.no_such_flag=1"])
