@@ -8,7 +8,9 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
   1 build     nvcc builds csrc/siren_fused.cu for sm_90a (or finds it built),
               with ptxas's register and spill report
   2 kernel    siren_fused against its plain PyTorch version on the card, max
-              |diff| <= 1e-5 on nineteen cases: the four configs of
+              |diff| <= 1e-5 on twenty cases (the last, `nn_leap_path`, one task
+              x 1024 points at 5x64 with one weight set, lp2_4's fine-tune
+              validation; `main_path` is tpu_run6b's at 3x64): the four configs of
               tests/test_pallas_siren.py, one task at the main path's shape
               and at 2^20 points, 8 tasks x 1024 points in one launch with
               per-task and with shared weights, 8 layers at width 128 (weights
@@ -48,8 +50,10 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               preconditioner) on the card and on the CPU: u_grids within
               1e-4 of the grid's largest |value|; seconds per task, Newton
               steps, BiCGStab iterations per Newton step, kernel launches
-              per V-cycle, and one solve under torch.profiler (device busy,
-              idle share, launches)
+              per V-cycle; one BiCGStab solve on the stiffness operator
+              with each iteration a CUDA graph and eager: the same iteration
+              count and iterates within 1e-5, both timed; and one solve
+              under torch.profiler (device busy, idle share, launches)
   6 deploy_mg the same deployment at the checkpoint's own resolution 32
               (multigrid), ground truth through the cache in
               gt_cache_torch/: the same launch count and the same bars, the
@@ -201,11 +205,52 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               (every val_rel_err finite and below 1e3); then two unprofiled
               steps and one profiled, and one step's peak memory without
               remat
+ 32 nn_parity  the plain-PINN driver (train/nn_driver.py) on the card and on
+              the CPU on the same host draws, TF32 off: 5 steps of
+              train_step_many from lp2_4 at pipeline/deployment_poisson.sh's
+              second command (5x64, bsize 16, 512 points), then one MAML
+              warm-up from results_poisson_maml/tpu_run6b at its first (3x64,
+              5 learned-LR steps): params within 1e-4 of each leaf's scale,
+              losses within rtol 1e-3; the pinned task equal on both sides
+ 33 nn_deploy_maml  the script's first command unchanged in width and depth
+              (nn_pde_maml from tpu_run6b: the warm-up, then 200 Adam steps
+              at bsize 16 on 1024 points, validation every 5 steps against
+              ground truth at 32) through cli/sweep on 4 seeds (the script's
+              8 cut to 4, in `reduced`), 4 jobs at once on the one card,
+              with the kernel on: "applied MAML warm-up adaptation" in each
+              log.txt, one launch per validation call in each job (each job
+              counts its own and writes them in log.txt's closing line),
+              the median over the seeds of val_rel_err at step 195 at most 3x
+              the JAX package's 8-seed median (7.3336e-4), the step-0, -100
+              and best medians beside JAX's; then the fine-tune step alone on
+              the card (steps/s, host draw, launches, idle share)
+ 34 nn_deploy_leap  the script's second command (nn_pde from lp2_4, 5x64,
+              512 points) on the same seeds and out_dir: every seed reads
+              its ground truth from the MAML sweep's cache ("0 solved, 1
+              read"), the same checks, bar 3x 8.0948e-4
+ 35 nn_multistart  cli/nn_pde from lp2_4 with 3 candidates (jitter 0.05),
+              10 steps, seed 1, ground truth from the cache: the ms_* keys in
+              metrics.jsonl, one launch per validation call, a final
+              checkpoint of one unstacked model with 3 scores
+ 36 solver_baseline  cli/solver_baseline on the card: 4 tasks at
+              resolutions 4, 8, 16 against the float64 reference at 32:
+              rel_mse falling with resolution and within 10x either way of
+              the JAX package's on the same tasks and coords
+              (tests/jax_solver_sweep_bar.py), the ratio to baselines/poisson's
+              committed sweep printed beside (16 other tasks, reference at
+              64, its means carried by a few hard tasks); then cli/gt_convergence
+              (one task at 4 and 8 against 16) on the card and, in a process
+              of its own, on the CPU: rel_mse within 1e-3 relative
 Then a JSON line with every kernel's numbers (with the training and LEAP
 paths' launches), one with the training numbers and the total seconds, and
 last the ok line. A failed check raises: the exit code is then not 0. A
-watchdog ends a hung run after 840 s with a traceback. Needs a CUDA device;
-imports nothing of JAX or metapde_tpu.
+watchdog ends a hung run after WATCHDOG_S seconds with every thread's stack.
+Needs a CUDA device; imports nothing of JAX or metapde_tpu. The phases that
+run an entry point in processes of their own (cli/sweep's jobs, the CPU's
+gt_convergence) start them in a session of their own (_spawn); the whole
+session is killed when the phase ends, fails or times out, when the
+watchdog fires, on SIGTERM and at exit, so the script leaves no process
+behind.
 
     python3 chip_smoke.py PHASE [PHASE ...]
 
@@ -213,21 +258,28 @@ runs the device and build phases and then only the named phases (for
 development; it prints no kernel line and no ok line).
 """
 
+import atexit
+import contextlib
 import faulthandler
+import io
 import json
 import math
+import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
 
-from metapde_tpu_torch.cli import deploy_bench, leap_pde, maml_pde, train_bench
+from metapde_tpu_torch.cli import (deploy_bench, gt_convergence, leap_pde, maml_pde, nn_pde,
+                                   solver_baseline, train_bench)
 from metapde_tpu_torch.cli.profile_deploy import _busy_us
 from metapde_tpu_torch.config import Config, FieldConfig, load_run_config, parse_overrides
 from metapde_tpu_torch.device import full_f32_matmuls
@@ -237,10 +289,54 @@ from metapde_tpu_torch.ops import _build, siren_fused
 from metapde_tpu_torch.pdes import get_pde
 from metapde_tpu_torch.pdes.burgers_formulations import default as burgers_default
 from metapde_tpu_torch.solvers import fem_elasticity, fem_poisson, fv_burgers, multigrid, newton
-from metapde_tpu_torch.train import checkpoints, leap_driver, loop, maml_driver, optimizers
+from metapde_tpu_torch.train import (checkpoints, leap_driver, loop, maml_driver, nn_driver,
+                                     optimizers)
 from metapde_tpu_torch.utils.trees import tree_leaves, tree_map
 
-faulthandler.dump_traceback_later(840, exit=True)
+# the watchdog: well inside the 1200 s a caller may give the whole run
+WATCHDOG_S = 1080
+_CHILDREN = []
+
+
+def _spawn(cmd, **kwargs):
+    """subprocess.Popen(cmd) in a session of its own, registered so that
+    _kill_children ends it and every process it started."""
+    proc = subprocess.Popen(cmd, start_new_session=True, **kwargs)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def _kill_children():
+    """SIGKILL the process group of every _spawn'ed process, and reap."""
+    for proc in _CHILDREN:
+        with contextlib.suppress(ProcessLookupError, PermissionError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        with contextlib.suppress(Exception):
+            proc.wait(timeout=10)
+
+
+def _on_timeout():
+    sys.stderr.write(f"chip_smoke: watchdog at {WATCHDOG_S} s, every thread's stack:\n")
+    faulthandler.dump_traceback(all_threads=True)
+    _kill_children()
+    os._exit(1)
+
+
+def _on_sigterm(signum, frame):
+    _kill_children()
+    os._exit(128 + signum)
+
+
+def _start_watchdog():
+    """The Python watchdog (kills the children, then exits 1), and
+    faulthandler's, a minute later, for a main thread that holds the
+    interpreter's lock."""
+    timer = threading.Timer(WATCHDOG_S, _on_timeout)
+    timer.daemon = True
+    timer.start()
+    faulthandler.dump_traceback_later(WATCHDOG_S + 60, exit=True)
+    signal.signal(signal.SIGTERM, _on_sigterm)
+    atexit.register(_kill_children)
 
 REPO = Path(__file__).resolve().parent
 RUN_DIR = REPO / "results_poisson_maml" / "p30k_f32_s1"
@@ -392,6 +488,54 @@ P3D_TRAIN_CUTS = {"train.outer_steps": 4, "train.steps_per_call": 2, "train.val_
                   "train.log_every": 2, "train.checkpoint_every": 4, "train.viz_every": 0,
                   "model.use_pallas_inference": "true"}
 P3D_TRAIN_BAR = 1e3  # tests/test_poisson3d.py:123-145
+# pipeline/deployment_poisson.sh: its first command (nn_pde_maml from the
+# MAML init tpu_run6b, 3x64) and its second (nn_pde from the LEAP init
+# lp2_4, 5x64), their flags as the script passes them
+MAML_INIT_RUN = REPO / "results_poisson_maml" / "tpu_run6b"
+MAML_INIT_CKPT = MAML_INIT_RUN / "checkpoint_step_500001.pickle"
+NN_COMMON = ["--task.pde=poisson", "--solver.ground_truth_resolution=32", "--model.omega=30",
+             "--model.omega0=30", "--train.optimizer=adam", "--task.bc_weight=1.0",
+             "--train.outer_steps=200", "--task.validation_points=1024",
+             "--train.log_every=5", "--train.val_every=5", "--train.viz_every=0",
+             "--train.checkpoint_every=0"]
+NN_MAML_FLAGS = NN_COMMON + ["--model.num_layers=3", "--model.layer_size=64",
+                             "--maml.outer_lr=1e-5", "--maml.grad_clip=100",
+                             "--maml.inner_steps=5", "--maml.inner_lr=1e-4",
+                             "--task.outer_points=1024"]
+NN_LEAP_FLAGS = NN_COMMON + ["--model.num_layers=5", "--model.layer_size=64",
+                             "--maml.outer_lr=2.5e-5", "--task.outer_points=512"]
+NN_SEEDS = (1, 2, 3, 4)  # the script's 8 seeds, cut to 4
+NN_CONCURRENCY = len(NN_SEEDS)  # the sweep's jobs all at once on the one card
+NN_VALIDATIONS = 40      # steps 0, 5, ..., 195
+NN_FACTOR = 3.0
+# Median over the 8 seeds of val_rel_err at steps 0, 100 and 195 and of
+# each seed's best, from the JAX package's runs of the two commands,
+# results_poisson_deploy/deploy_maml_seed_{1..8}/metrics.jsonl and
+# results_poisson_deploy/deploy_leap_seed_{1..8}/metrics.jsonl
+JAX_NN_MAML = {"step_0": 0.8098624646663666, "step_100": 0.006778831128031015,
+               "step_195": 0.0007333587855100632, "best": 0.0004312469682190567}
+JAX_NN_LEAP = {"step_0": 0.45151934027671814, "step_100": 0.0008246789511758834,
+               "step_195": 0.0008094840741250664, "best": 0.0006973171985009685}
+NN_PARITY_STEPS = 5
+NN_MS_CUTS = {"deploy.n_starts": 3, "deploy.jitter": 0.05, "train.outer_steps": 10}
+# rel_mse of the JAX package's sweep on the same BASELINE_N_EVAL tasks and
+# coords (the port's host draw) against its float64 reference at 32, on a
+# CPU: env JAX_PLATFORMS=cpu python tests/jax_solver_sweep_bar.py (output
+# in PERF.md). The port's sweep is held to it within 10x either way.
+JAX_SAME_TASKS_REL_MSE = {4: 2.5967916313398074e-05, 8: 2.6280354278605e-06,
+                          16: 1.5730399460911436e-07}
+# the JAX package's committed pipeline/baseline.sh sweep (16 other tasks,
+# reference at 64): its means are carried by a few hard tasks (std above
+# the mean), so the port's 4 tasks are set beside it, not held to it
+BASELINE_JSON = REPO / "baselines" / "poisson" / "errors_by_resolution.json"
+BASELINE_REF = 32
+BASELINE_RESOLUTIONS = (4, 8, 16)
+BASELINE_N_EVAL = 4
+BASELINE_FACTOR = 10.0
+# card against CPU, one task at resolutions 4 and 8 against a reference at 16
+BASELINE_PARITY_REF = 16
+BASELINE_PARITY_RESOLUTIONS = (4, 8)
+BASELINE_PARITY_RTOL = 1e-3
 # H100 SXM published peaks (dense, at the 700 W limit): TF32 on the tensor
 # cores, f32 outside them, and HBM bandwidth. The SFU returns 16 sines per
 # clock per SM where the CUDA cores do 128 f32 FMAs (2 flops each): the CUDA
@@ -511,7 +655,9 @@ KERNEL_CASES = [  # (name, FieldConfig overrides, tasks, points, weights)
     ("no_log_scale", dict(log_scale=False), 1, 1500, "one"),
     ("out_dim_2", dict(out_dim=2, squeeze_scalar=False), 1, 1500, "one"),
     ("8_layers", dict(num_layers=8), 1, 1500, "one"),
-    ("main_path", {}, 1, 1024, "one"),             # one eval task's validation points
+    # one eval task's validation points: also the plain-PINN fine-tune's
+    # validation from tpu_run6b (nn_deploy_maml, 3x64, one weight set)
+    ("main_path", {}, 1, 1024, "one"),
     ("main_path_2pow20", {}, 1, 1 << 20, "one"),
     # p30k_f32_s1's deployment: P30K_N_EVAL tasks x 1024 validation points
     ("main_path_batched", {}, P30K_N_EVAL, 1024, "per_task"),  # at k >= 1
@@ -545,11 +691,14 @@ KERNEL_CASES = [  # (name, FieldConfig overrides, tasks, points, weights)
     # poisson3d's validation: 8 tasks x 2048 points at in_dim 3, the
     # pipeline's 5x128 (streamed)
     ("poisson3d_path", dict(num_layers=5, layer_size=128, in_dim=3), 8, 2048, "per_task"),
+    # the plain-PINN fine-tune's validation from lp2_4 (nn_deploy_leap):
+    # one task x 1024 points at 5x64, one weight set
+    ("nn_leap_path", dict(num_layers=5), 1, 1024, "one"),
 ]
 CROSSING = ("tasks_cross", "wide_deep_tasks")
 TIMED = ("main_path", "main_path_2pow20", "main_path_batched", "main_path_shared",
          "tasks_cross", "leap_path", "burgers_path", "ldb3_path", "em7_9_path", "lde2_3_path",
-         "sburgers_path", "poisson3d_path")
+         "sburgers_path", "poisson3d_path", "nn_leap_path")
 # csrc/siren_fused.cu: points per (task, tile) item, and the most blocks of
 # its 256 threads an SM holds (2048 threads), so the most its persistent
 # grid can have per SM
@@ -809,6 +958,21 @@ def phase_ground_truth_mg():
     v = torch.randn(n_nodes, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
     vcycle_ms = cuda_ms(lambda: M(v))
     vcycle_prof = _profile(lambda: M(v))
+    # BiCGStab on the level-0 stiffness operator with the V-cycle, each
+    # iteration one CUDA graph and eager: the same kernels, so the same
+    # iterate and iteration count
+    A = multigrid.polar_levels(geo, MG_RES)[0].apply
+    krylov = {}
+    for graphed in (True, False):
+        newton.bicgstab.iterations = 0
+        x, secs = _timed(lambda: newton.bicgstab(A, v, tol=1e-5, maxiter=150, M=M,
+                                                 cuda_graph=graphed), "cuda")
+        krylov[graphed] = (x, secs, newton.bicgstab.iterations)
+    graph_diff = float((krylov[True][0] - krylov[False][0]).abs().max()
+                       / krylov[False][0].abs().max())
+    if krylov[True][2] != krylov[False][2] or not graph_diff <= KERNEL_TOL:
+        raise AssertionError(f"graphed BiCGStab: {krylov[True][2]} iterations, rel diff "
+                             f"{graph_diff} against eager's {krylov[False][2]}")
     newton.bicgstab.iterations = 0
     solve_prof = _profile(lambda: fem_poisson.solve(tuple(a.to("cuda") for a in tasks[-1]),
                                                     resolution=MG_RES))
@@ -816,6 +980,9 @@ def phase_ground_truth_mg():
     emit("ground_truth_mg", t0, resolution=MG_RES, tol=MG_TOL, tasks=rows,
          vcycle_ms=vcycle_ms, vcycle_launches=vcycle_prof["launches"],
          vcycle_device_ms=vcycle_prof["device_busy_ms"], vcycle_wall_ms=vcycle_prof["wall_ms"],
+         bicgstab_graph={"iterations": krylov[True][2], "graph_s": krylov[True][1],
+                         "eager_s": krylov[False][1], "rel_diff": graph_diff,
+                         "bit_equal": bool(torch.equal(krylov[True][0], krylov[False][0]))},
          solve_profiled=solve_prof)
     return {"s_per_task": statistics.mean(r["card_s"] for r in rows),
             "vcycle_launches": vcycle_prof["launches"]}
@@ -1853,6 +2020,287 @@ def phase_poisson3d_train():
             "val_rel_err": recs[-1]["val_rel_err"], "gt_solved_read": gt_solved}
 
 
+# --- the comparison side: plain-PINN fine-tunes and the solver sweep -----
+
+_NN_OUT = []
+
+
+def _nn_out():
+    """The out_dir the nn phases share (and its gt_cache_torch/), removed
+    when the process ends."""
+    if not _NN_OUT:
+        _NN_OUT.append(tempfile.TemporaryDirectory())
+    return Path(_NN_OUT[0].name)
+
+
+def _nn_state(fname, device, lrs=False):
+    """A checkpoint's params (and inner LRs) on `device`."""
+    ck = checkpoints.load_checkpoint(str(fname))
+    out = params_from_numpy(ck["params"], device)
+    return (out, params_from_numpy(ck["inner_lrs"], device)) if lrs else out
+
+
+def phase_nn_parity():
+    """nn_driver on the card and on the CPU on the same host draws (TF32
+    off on the card): NN_PARITY_STEPS steps of train_step_many from lp2_4
+    at the second command's width, then one MAML warm-up from tpu_run6b at
+    the first's. The pinned task is drawn on the host on both sides."""
+    t0 = time.perf_counter()
+    rows = {}
+    leap_cfg = parse_overrides(Config(), NN_LEAP_FLAGS + ["--seed=1"])
+    cards, cpus = nn_driver.build(leap_cfg, "cuda"), nn_driver.build(leap_cfg, "cpu")
+    task_err = max(float((a.cpu() - b).abs().max())
+                   for a, b in zip(cards["task_params"], cpus["task_params"]))
+    if task_err != 0.0:
+        raise AssertionError(f"the pinned task differs between card and CPU by {task_err}")
+    params = _nn_state(LEAP_CKPT, "cpu")
+    outs = {}
+    for name, c in (("card", cards), ("cpu", cpus)):
+        p = tree_map(lambda t: t.to(c["device"]), params)
+        with full_f32_matmuls():
+            outs[name], secs = _timed(lambda: c["train_step_many"](
+                torch.Generator().manual_seed(17), p, c["opt"].init(p), NN_PARITY_STEPS),
+                c["device"].type)
+        rows[f"{name}_s"] = secs
+    losses_card, losses_cpu = outs["card"][5].cpu(), outs["cpu"][5]
+    rows["leaf_err"] = _leaf_err(outs["card"][0], outs["cpu"][0])
+    rows["loss_rel"] = float(((losses_card - losses_cpu).abs() / losses_cpu.abs()).max())
+    rows["losses"] = losses_cpu.tolist()
+    maml_cfg = parse_overrides(Config(), NN_MAML_FLAGS + ["--seed=1"])
+    warm = {}
+    for dev in ("cuda", "cpu"):
+        c = nn_driver.build(maml_cfg, dev)
+        with full_f32_matmuls():
+            warm[dev] = c["maml_warmup"](torch.Generator().manual_seed(19),
+                                         *_nn_state(MAML_INIT_CKPT, dev, lrs=True))
+    rows["warmup_leaf_err"] = _leaf_err(warm["cuda"], warm["cpu"])
+    rows["warmup_moved"] = _leaf_err(warm["cpu"], _nn_state(MAML_INIT_CKPT, "cpu"))
+    if not (rows["leaf_err"] <= TRAIN_LEAF_TOL and rows["warmup_leaf_err"] <= TRAIN_LEAF_TOL
+            and rows["loss_rel"] <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"nn_parity beyond {TRAIN_LEAF_TOL} of a leaf's scale or losses "
+                             f"beyond rtol {TRAIN_LOSS_RTOL}: {rows}")
+    emit("nn_parity", t0, leaf_tol=TRAIN_LEAF_TOL, loss_rtol=TRAIN_LOSS_RTOL,
+         steps=NN_PARITY_STEPS, **rows)
+
+
+def _done_line(run):
+    """(run s, ground-truth s, siren_fused launches) from nn_driver's
+    closing line of log.txt."""
+    line = next(l for l in (run / "log.txt").read_text().splitlines()
+                if l.startswith("done: "))
+    words = line.replace(",", "").split()
+    return float(words[4]), float(words[8]), int(words[12])
+
+
+def _nn_sweep(name, driver, flags, init_run, jax_medians, warmup):
+    """cli/sweep over NN_SEEDS with `driver` and the command's flags from
+    `init_run`, the kernel on, into the shared out_dir; each job counts its
+    own siren_fused launches from 0 (a fresh process) and writes them in
+    its log.txt's closing line. Holds each seed to one launch per
+    validation call and the median over the seeds of the step-195
+    val_rel_err to NN_FACTOR x the JAX package's 8-seed median."""
+    t0 = time.perf_counter()
+    out = _nn_out()
+    cmd = [sys.executable, "-m", "metapde_tpu_torch.cli.sweep", f"--driver={driver}",
+           "--seeds=" + ",".join(map(str, NN_SEEDS)), f"--concurrency={NN_CONCURRENCY}", "--",
+           *flags, "--model.use_pallas_inference=true",
+           f"--train.load_model_from_expt={init_run}", f"--train.out_dir={out}",
+           f"--train.expt_name={name}"]
+    # the jobs share the host's cores for their draws and launches
+    env = {**os.environ,
+           "OMP_NUM_THREADS": str(max(1, len(os.sched_getaffinity(0)) // NN_CONCURRENCY))}
+    proc = _spawn(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                  env=env)
+    try:
+        text, _ = proc.communicate(timeout=600)
+    finally:
+        _kill_children()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{name}: the sweep exited {proc.returncode}: {text[-4000:]}")
+    seeds = {}
+    for s in NN_SEEDS:
+        run = out / f"{name}_seed_{s}"
+        log = (run / "log.txt").read_text()
+        recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+        run_s, gt_s, launches = _done_line(run)
+        val = {r["step"]: r["val_rel_err"] for r in recs}
+        if sorted(val) != list(range(0, 200, 5)) or not all(map(math.isfinite, val.values())):
+            raise AssertionError(f"{name} seed {s}: validation steps {sorted(val)}, values "
+                                 f"{list(val.values())}")
+        if warmup and "applied MAML warm-up adaptation" not in log:
+            raise AssertionError(f"{name} seed {s}: no MAML warm-up in log.txt")
+        if launches != len(recs):
+            raise AssertionError(f"{name} seed {s}: {launches} siren_fused launches for "
+                                 f"{len(recs)} validation calls")
+        seeds[s] = {"val": val, "run_s": run_s, "gt_s": gt_s, "launches": launches,
+                    "gt_solved_read": _gt_log(run),
+                    "steps_per_s": 1.0 / statistics.median(r["step_time"] for r in recs[1:])}
+    med = {f"step_{k}": statistics.median(d["val"][k] for d in seeds.values())
+           for k in (0, 100, 195)}
+    med["best"] = statistics.median(min(d["val"].values()) for d in seeds.values())
+    bar = NN_FACTOR * jax_medians["step_195"]
+    if not med["step_195"] <= bar:
+        raise AssertionError(f"{name}: step-195 median {med['step_195']} above {NN_FACTOR} x "
+                             f"the JAX package's {jax_medians['step_195']}")
+    return {"reduced": {"seeds": len(NN_SEEDS), "of": 8}, "concurrency": NN_CONCURRENCY,
+            "wall_s": wall, "median": med, "jax_median": jax_medians, "bar_step_195": bar,
+            "launches": sum(d["launches"] for d in seeds.values()),
+            "validations": NN_VALIDATIONS * len(NN_SEEDS),
+            "per_seed": {s: {"step_195": d["val"][195], "best": min(d["val"].values()),
+                             **{k: d[k] for k in ("run_s", "gt_s", "launches",
+                                                  "gt_solved_read", "steps_per_s")}}
+                         for s, d in seeds.items()},
+            # the jobs start together (NN_CONCURRENCY >= the seeds): the
+            # sweep's wall time less its longest run, one process's start-up
+            # (interpreter, imports, CUDA context) and the sweep's own
+            "startup_s": wall - max(d["run_s"] for d in seeds.values())}
+
+
+def _nn_step_numbers(flags, params):
+    """The fine-tune step at a command's width, alone on the card:
+    _step_numbers' steps/s, host draw, launches, device busy and idle."""
+    cfg = parse_overrides(Config(), flags + ["--seed=1"])
+    c = nn_driver.build(cfg, "cuda")
+    return _step_numbers(cfg, c, (params, c["opt"].init(params)),
+                         lambda out: (out[:2], out[2]))
+
+
+def phase_nn_deploy_maml():
+    """pipeline/deployment_poisson.sh's first command through cli/sweep
+    (nn_pde_maml from tpu_run6b: the MAML warm-up, then 200 Adam steps at
+    bsize 16 on 1024 points, validation every 5 steps against ground truth
+    at 32), with the kernel on; then one step of it alone on the card,
+    profiled."""
+    t0 = time.perf_counter()
+    row = _nn_sweep("deploy_maml", "nn_pde_maml", NN_MAML_FLAGS, MAML_INIT_RUN, JAX_NN_MAML,
+                    warmup=True)
+    row["step"] = _nn_step_numbers(NN_MAML_FLAGS, _nn_state(MAML_INIT_CKPT, "cuda"))
+    emit("nn_deploy_maml", t0, **row)
+    return row
+
+
+def phase_nn_deploy_leap():
+    """The script's second command (nn_pde from lp2_4, 512 points) on the
+    same seeds and out_dir: its pinned tasks are the MAML sweep's, so each
+    reads its ground truth from the MAML sweep's cache when that ran first
+    in this process."""
+    t0 = time.perf_counter()
+    maml_ran = (_nn_out() / "deploy_maml_seed_1").exists()
+    row = _nn_sweep("deploy_leap", "nn_pde", NN_LEAP_FLAGS, LEAP_RUN, JAX_NN_LEAP,
+                    warmup=False)
+    reads = {s: d["gt_solved_read"] for s, d in row["per_seed"].items()}
+    if maml_ran and set(reads.values()) != {(0, 1)}:
+        raise AssertionError(f"nn_deploy_leap: (solved, read) {reads}: the ground truths "
+                             "were not read from the MAML sweep's cache")
+    row["step"] = _nn_step_numbers(NN_LEAP_FLAGS, _nn_state(LEAP_CKPT, "cuda"))
+    emit("nn_deploy_leap", t0, gt_from_maml_cache=maml_ran, **row)
+    return row
+
+
+def phase_nn_multistart():
+    """cli/nn_pde from lp2_4 with 3 candidates (jitter 0.05), 10 steps, seed
+    1: the ms_* keys in every metrics row, one launch per validation call,
+    and a final checkpoint of one unstacked model with 3 scores."""
+    t0 = time.perf_counter()
+    out = _nn_out()
+    siren_fused.siren_apply_fused_batched.launches = 0
+    nn_pde.main(NN_LEAP_FLAGS + [
+        "--seed=1", "--model.use_pallas_inference=true",
+        f"--train.load_model_from_expt={LEAP_RUN}", f"--train.out_dir={out}",
+        "--train.expt_name=multistart", *(f"--{k}={v}" for k, v in NN_MS_CUTS.items())])
+    torch.cuda.synchronize()
+    launches = siren_fused.siren_apply_fused_batched.launches
+    run = out / "multistart"
+    recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+    ms_keys = ("ms_best_idx", "ms_train_best_idx", "ms_score_best", "ms_score_worst")
+    if not recs or any(k not in r for r in recs for k in ms_keys):
+        raise AssertionError(f"nn_multistart: metrics rows without {ms_keys}: {recs}")
+    steps = NN_MS_CUTS["train.outer_steps"]
+    final = checkpoints.load_checkpoint(str(run / f"checkpoint_step_{steps}.pickle"))
+    ref = checkpoints.load_checkpoint(str(LEAP_CKPT))
+    shapes = [x.shape for x in tree_leaves(final["params"])]
+    if shapes != [x.shape for x in tree_leaves(ref["params"])]:
+        raise AssertionError(f"nn_multistart: final params {shapes} are not one model")
+    if len(final["ms_scores"]) != NN_MS_CUTS["deploy.n_starts"] or launches != len(recs):
+        raise AssertionError(f"nn_multistart: {len(final['ms_scores'])} scores, {launches} "
+                             f"launches for {len(recs)} validation calls")
+    emit("nn_multistart", t0, reduced=NN_MS_CUTS, launches=launches, validations=len(recs),
+         gt_solved_read=_gt_log(run), ms_scores=[float(x) for x in final["ms_scores"]],
+         ms_best_idx=int(final["ms_best_idx"]),
+         val_rel_err=[r["val_rel_err"] for r in recs],
+         ms_train_best_idx=[r["ms_train_best_idx"] for r in recs],
+         checkpoint_keys=sorted(final))
+    return {"launches": launches}
+
+
+def _baseline(tmp, name, args):
+    """cli/solver_baseline into `tmp`; (its rows, its reference seconds a task)."""
+    rows = solver_baseline.main(["--task.pde=poisson", f"--train.out_dir={tmp}",
+                                 f"--train.expt_name={name}", *args])
+    line = next(l for l in (Path(tmp) / name / "log.txt").read_text().splitlines()
+                if l.startswith("reference solves: "))
+    return rows, float(line.split()[2])
+
+
+def phase_solver_baseline():
+    """cli/solver_baseline on the card: BASELINE_N_EVAL tasks at
+    resolutions 4, 8, 16 against the float64 reference at 32, rel_mse
+    falling with resolution and within BASELINE_FACTOR either way of the
+    JAX package's on the same tasks (the committed JAX sweep's ratio
+    printed beside); then cli/gt_convergence (Poisson, one task
+    at 4 and 8 against 16) on the card and, in a process of its own started
+    first, on the CPU: rel_mse within BASELINE_PARITY_RTOL."""
+    t0 = time.perf_counter()
+    conv_args = ["--task.pde=poisson", f"--ref_resolution={BASELINE_PARITY_REF}",
+                 "--resolutions=" + ",".join(map(str, BASELINE_PARITY_RESOLUTIONS)),
+                 "--n_tasks=1"]
+    cpu = _spawn(
+        [sys.executable, "-m", "metapde_tpu_torch.cli.gt_convergence", "--device=cpu",
+         *conv_args], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            rows, ref_s = _baseline(tmp, "res_sweep", [
+                f"--solver.ground_truth_resolution={BASELINE_REF}",
+                "--resolutions=" + ",".join(map(str, BASELINE_RESOLUTIONS)),
+                f"--task.n_eval={BASELINE_N_EVAL}"])
+            written = (Path(tmp) / "res_sweep" / "errors_by_resolution.json").exists()
+        t1 = time.perf_counter()
+        with io.StringIO() as buf, contextlib.redirect_stdout(buf):
+            card = gt_convergence.main(conv_args)
+        conv_s = time.perf_counter() - t1
+        out, err = cpu.communicate(timeout=400)
+    finally:
+        _kill_children()
+    if cpu.returncode != 0:
+        raise AssertionError(f"the CPU gt_convergence exited {cpu.returncode}: {err[-3000:]}")
+    cpu_rows = [json.loads(l) for l in out.splitlines() if l.startswith('{"resolution"')]
+    committed = json.loads(BASELINE_JSON.read_text())
+    mse = [rows[str(r)]["rel_mse"] for r in BASELINE_RESOLUTIONS]
+    ratio = {r: rows[str(r)]["rel_mse"] / JAX_SAME_TASKS_REL_MSE[r]
+             for r in BASELINE_RESOLUTIONS}
+    rel = {a["resolution"]: abs(a["rel_mse"] - b["rel_mse"]) / b["rel_mse"]
+           for a, b in zip(card, cpu_rows)}
+    if not (written and all(a > b for a, b in zip(mse, mse[1:]))):
+        raise AssertionError(f"solver_baseline: rel_mse {mse} not falling, or no JSON written")
+    if not all(1 / BASELINE_FACTOR <= q <= BASELINE_FACTOR for q in ratio.values()):
+        raise AssertionError(f"solver_baseline: rel_mse / the JAX package's on the same tasks "
+                             f"{ratio}, beyond {BASELINE_FACTOR}x")
+    if len(rel) != len(BASELINE_PARITY_RESOLUTIONS) or not max(rel.values()) <= \
+            BASELINE_PARITY_RTOL:
+        raise AssertionError(f"gt_convergence: card vs CPU rel_mse {rel} beyond "
+                             f"{BASELINE_PARITY_RTOL}")
+    emit("solver_baseline", t0, tasks=BASELINE_N_EVAL, reference_resolution=BASELINE_REF,
+         reference_s_per_task=ref_s, rows=rows, jax_same_tasks=JAX_SAME_TASKS_REL_MSE,
+         ratio_to_jax_same_tasks=ratio, factor=BASELINE_FACTOR,
+         committed_jax_rows={str(r): committed[str(r)] for r in BASELINE_RESOLUTIONS},
+         ratio_to_committed={r: rows[str(r)]["rel_mse"] / committed[str(r)]["rel_mse"]
+                             for r in BASELINE_RESOLUTIONS},
+         committed_note="baselines/poisson: 16 other tasks, reference at 64, means carried "
+         "by a few hard tasks; set beside, not held to",
+         gt_convergence={"card": card, "cpu": cpu_rows, "rel": rel,
+                         "rtol": BASELINE_PARITY_RTOL, "card_s": conv_s})
+
 PHASES = {
     "kernel": phase_kernel, "parity": phase_parity, "deploy": phase_deploy,
     "ground_truth_mg": phase_ground_truth_mg, "deploy_mg": phase_deploy_mg,
@@ -1869,7 +2317,9 @@ PHASES = {
     "elasticity_train": phase_elasticity_train, "steady_gt": phase_steady_gt,
     "steady_parity": phase_steady_parity, "steady_deploy": phase_steady_deploy,
     "steady_train": phase_steady_train, "poisson3d_parity": phase_poisson3d_parity,
-    "poisson3d_train": phase_poisson3d_train,
+    "poisson3d_train": phase_poisson3d_train, "nn_parity": phase_nn_parity,
+    "nn_deploy_maml": phase_nn_deploy_maml, "nn_deploy_leap": phase_nn_deploy_leap,
+    "nn_multistart": phase_nn_multistart, "solver_baseline": phase_solver_baseline,
 }
 
 
@@ -1910,6 +2360,11 @@ def main(argv):
     steady_train = phase_steady_train()
     phase_poisson3d_parity()
     poisson3d_train = phase_poisson3d_train()
+    phase_nn_parity()
+    nn_maml = phase_nn_deploy_maml()
+    nn_leap = phase_nn_deploy_leap()
+    nn_ms = phase_nn_multistart()
+    phase_solver_baseline()
     main_row, big = kern["main_path_batched"], kern["main_path_2pow20"]
     timing_keys = ("ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
                    "bound_f32_ms")
@@ -1960,6 +2415,14 @@ def main(argv):
         **{f"at_{case[:-5]}_shape": {k: kern[case][k] for k in (
             "tasks", "n", "max_abs_err", *timing_keys, "resident", "smem_bytes",
             "blocks_per_sm", "n_sm")} for case in ("sburgers_path", "poisson3d_path")},
+        # the plain-PINN fine-tunes: one launch per validation call
+        "nn_deploy_maml_launches": nn_maml["launches"],
+        "nn_deploy_leap_launches": nn_leap["launches"],
+        "nn_multistart_launches": nn_ms["launches"],
+        **{f"at_{case}_shape": {k: kern[row][k] for k in (
+            "tasks", "n", "max_abs_err", *timing_keys, "resident", "smem_bytes",
+            "blocks_per_sm", "n_sm")}
+           for case, row in (("nn_maml", "main_path"), ("nn_leap", "nn_leap_path"))},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"training": {"train": train,
@@ -1972,7 +2435,9 @@ def main(argv):
                                    "elasticity_gt": elasticity_gt,
                                    "steady_train": steady_train,
                                    "steady_gt": steady_gt,
-                                   "poisson3d_train": poisson3d_train},
+                                   "poisson3d_train": poisson3d_train,
+                                   "nn_deploy_maml": nn_maml["step"],
+                                   "nn_deploy_leap": nn_leap["step"]},
                       "ground_truth_mg": gt_mg,
                       "total_s": time.perf_counter() - T_START}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1981,6 +2446,7 @@ def main(argv):
 
 
 if __name__ == "__main__":
+    _start_watchdog()
     main(sys.argv[1:])
     faulthandler.cancel_dump_traceback_later()
     sys.exit(0)

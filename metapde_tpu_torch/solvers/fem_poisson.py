@@ -9,7 +9,9 @@
 - Assembly: per-element residuals (edge-midpoint quadrature, exact for
   quadratics) scattered with index_add (the JAX package's segment_sum).
 - Newton with matrix-free BiCGStab, preconditioned by Jacobi or, from
-  resolution 32 up, by a geometric-multigrid V-cycle (multigrid.py).
+  resolution 16 up (the JAX package: 32), by a geometric-multigrid V-cycle
+  (multigrid.py). On the card each BiCGStab iteration is one CUDA graph
+  (newton.py's cuda_graph).
 
 Evaluation at points is bilinear interpolation in the logical (rho, theta)
 chart (evaluate), or bicubic (evaluate_cubic) for the higher-order
@@ -86,8 +88,12 @@ def _element_geometry(coords, tris):
 
 
 def _auto_precond(resolution: int) -> str:
-    """mg for even resolution >= 32, jacobi below (the JAX package's rule)."""
-    return "mg" if resolution >= 32 and resolution % 2 == 0 else "jacobi"
+    """mg for even resolution >= 16, jacobi below. The JAX package starts mg
+    at 32; at 16 f32 Jacobi-BiCGStab already stops at its iteration cap in
+    every Newton step and leaves some tasks' fields 1e-3 to 8e-3 (of their
+    largest |value|) off the float64 solve, in both packages, where mg
+    reaches 2e-6 to 1.4e-5 in a fifth of the iterations."""
+    return "mg" if resolution >= 16 and resolution % 2 == 0 else "jacobi"
 
 
 class PoissonGroundTruth(NamedTuple):
@@ -104,7 +110,7 @@ def solve(params, resolution: int = 16, max_newton_steps: int = 12,
     """Solve one Poisson task (source, bc, geo params tensors) on their device.
 
     precond: "jacobi", "mg" (geometric multigrid V-cycle, multigrid.py), or
-    "auto" (= mg for even resolution >= 32, where f32 Jacobi-BiCGStab
+    "auto" (= mg for even resolution >= 16, where f32 Jacobi-BiCGStab
     stagnates on the stiffness condition number; jacobi below).
     """
     if precond == "auto":
@@ -188,6 +194,7 @@ def _solve_impl(params, resolution, max_newton_steps, precond, rel_tol, krylov_t
         krylov_max_iters=krylov_iters,
         precond_diag=diag,
         precond_apply=precond_apply,
+        cuda_graph=True,  # the residual and the V-cycle make no host reads
     )
 
     u = result.u

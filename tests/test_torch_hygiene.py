@@ -183,3 +183,22 @@ def test_config_copy_equals_the_jax_package_config():
                                                        [f"--from_run={run_dir}"]).to_json())
     with pytest.raises(KeyError):
         config_mod.parse_overrides(config_mod.Config(), ["--maml.no_such_flag=1"])
+
+
+def test_comparison_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
+    """The plain-PINN and solver-sweep entry points run on the card unless
+    given --device=cpu, and refuse before writing anything without one."""
+    from metapde_tpu_torch.cli import gt_convergence, nn_pde, nn_pde_maml, solver_baseline
+    from metapde_tpu_torch.train import baseline_driver, nn_driver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = [f"--train.out_dir={tmp_path}"]
+    for call in (lambda: nn_pde.main(out), lambda: nn_pde_maml.main(out),
+                 lambda: solver_baseline.main(out + ["--resolutions=2"]),
+                 lambda: gt_convergence.main(["--resolutions=2", "--ref_resolution=4"]),
+                 lambda: nn_driver.build(config_mod.Config()),
+                 lambda: nn_driver.run(config_mod.Config(), device="cuda"),
+                 lambda: baseline_driver.run(config_mod.Config(), device="cuda")):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not list(tmp_path.iterdir())
