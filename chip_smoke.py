@@ -241,6 +241,22 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               64, its means carried by a few hard tasks); then cli/gt_convergence
               (one task at 4 and 8 against 16) on the card and, in a process
               of its own, on the CPU: rel_mse within 1e-3 relative
+ 37 mesh_train  the parallel layer (metapde_tpu_torch/parallel), ranks in
+              processes of their own, sharing the card through gloo (each
+              with its own card and nccl where the machine has enough): (a)
+              bench.py's flagship at full width through cli/distributed_smoke,
+              one outer step on dp = 2, pt = 2 and 2 x 2 in f32 and on 2 x 2
+              in bf16 against the one-process step on the same draws and card:
+              the meta-gradient within 1e-4 of each leaf's scale and the losses
+              within rtol 1e-4 (bf16: 1e-2), with steps/s, launches, collectives
+              and idle share of rank 0's steps; (b) pipeline/maml_meta_3d.sh's
+              config at full width (5x128, 2048 points, 8 eval tasks) through
+              the launcher and cli/maml_pde on dp = 2 at bsize 32 (cuts in
+              `reduced`), 4 steps: rank 0 alone writes the run files,
+              val_rel_err finite and below 1e3, one siren_fused launch (rank
+              0's) per validation call; steps/s, each rank's peak memory,
+              backend; (c) LEAP at lp2_4's width, one dp = 2 and one pt = 2
+              step against the one-process step; no process left behind
 Then a JSON line with every kernel's numbers (with the training and LEAP
 paths' launches), one with the training numbers and the total seconds, and
 last the ok line. A failed check raises: the exit code is then not 0. A
@@ -249,8 +265,9 @@ Needs a CUDA device; imports nothing of JAX or metapde_tpu. The phases that
 run an entry point in processes of their own (cli/sweep's jobs, the CPU's
 gt_convergence) start them in a session of their own (_spawn); the whole
 session is killed when the phase ends, fails or times out, when the
-watchdog fires, on SIGTERM and at exit, so the script leaves no process
-behind.
+watchdog fires, on SIGTERM and at exit, and so is every process below the
+script, which is their subreaper (the launcher and cli/distributed_smoke
+start ranks in sessions of their own), so it leaves no process behind.
 
     python3 chip_smoke.py PHASE [PHASE ...]
 
@@ -260,6 +277,7 @@ development; it prints no kernel line and no ok line).
 
 import atexit
 import contextlib
+import ctypes
 import faulthandler
 import io
 import json
@@ -306,13 +324,41 @@ def _spawn(cmd, **kwargs):
     return proc
 
 
+def _descendants(pid):
+    """Every live process below `pid` (zombies left out), from /proc's
+    parent links."""
+    kids = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            with contextlib.suppress(OSError, IndexError, ValueError):
+                state, ppid = Path(f"/proc/{d}/stat").read_text().rsplit(")", 1)[1].split()[:2]
+                if state != "Z":
+                    kids.setdefault(int(ppid), []).append(int(d))
+    out, todo = [], [pid]
+    while todo:
+        for child in kids.get(todo.pop(), []):
+            out.append(child)
+            todo.append(child)
+    return out
+
+
 def _kill_children():
-    """SIGKILL the process group of every _spawn'ed process, and reap."""
+    """SIGKILL every process below this one (the script is their
+    subreaper, so the ranks that the launcher and cli/distributed_smoke
+    start in sessions of their own stay below it when their parent dies)
+    and the process group of every _spawn'ed process, and reap."""
+    for pid in _descendants(os.getpid()):
+        with contextlib.suppress(ProcessLookupError, PermissionError):
+            os.kill(pid, signal.SIGKILL)
     for proc in _CHILDREN:
         with contextlib.suppress(ProcessLookupError, PermissionError):
             os.killpg(proc.pid, signal.SIGKILL)
         with contextlib.suppress(Exception):
             proc.wait(timeout=10)
+    # orphans reparented to this subreaper
+    with contextlib.suppress(ChildProcessError):
+        while os.waitpid(-1, os.WNOHANG)[0]:
+            pass
 
 
 def _on_timeout():
@@ -331,6 +377,9 @@ def _start_watchdog():
     """The Python watchdog (kills the children, then exits 1), and
     faulthandler's, a minute later, for a main thread that holds the
     interpreter's lock."""
+    # PR_SET_CHILD_SUBREAPER: orphaned descendants stay below this process
+    with contextlib.suppress(OSError, AttributeError):
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
     timer = threading.Timer(WATCHDOG_S, _on_timeout)
     timer.daemon = True
     timer.start()
@@ -2301,6 +2350,184 @@ def phase_solver_baseline():
          gt_convergence={"card": card, "cpu": cpu_rows, "rel": rel,
                          "rtol": BASELINE_PARITY_RTOL, "card_s": conv_s})
 
+
+# --- the parallel layer: sharded meta-training over torch.distributed -----
+
+# bench.py's flagship (train_bench.FLAGSHIP) as CLI flags; the phase checks
+# that they parse to it
+FLAGSHIP_FLAGS = ["--task.inner_points=1024", "--task.outer_points=1024",
+                  "--task.validation_points=1024", "--task.n_eval=8", "--task.bc_weight=1.0",
+                  "--task.sample_with_replacement=true", "--model.num_layers=3",
+                  "--model.layer_size=64", "--model.omega=30", "--model.omega0=30",
+                  "--model.compute_dtype=bfloat16", "--maml.bsize=16", "--maml.inner_steps=5",
+                  "--maml.inner_lr=1e-4", "--maml.outer_lr=1e-5", "--maml.inner_grad_clip=100",
+                  "--maml.grad_clip=100", "--maml.unroll=5", "--train.remat_inner_steps=false"]
+MESH_FLAGSHIP_MESHES = "2x1,1x2,2x2"  # dp = 2, pt = 2, 2 x 2 (f32); bf16 on 2 x 2
+MESH_P3D_RANKS = 2
+# pipeline/maml_meta_3d.sh's bsize 256 on 8 task shards, cut to 32 on 2
+MESH_P3D_FLAGS = ["--maml.bsize=32", f"--mesh.n_task_shards={MESH_P3D_RANKS}"]
+MESH_P3D_REDUCED = {"maml.bsize": "256 -> 32", "mesh.n_task_shards": "8 -> 2",
+                    **{k: v for k, v in P3D_TRAIN_CUTS.items()}}
+MESH_LEAP_MESHES = "2x1,1x2"
+# LEAP's bars at lp2_4's width, from measurement (this phase on one H100
+# 80GB HBM3 at 700 W: meta-gradient 3.0e-6 of a leaf's scale, losses 2.5e-7
+# relative), tighter than tests/test_torch_leap.py's parity bars (2e-2, 1e-5)
+MESH_LEAP_BARS = ("--grad_bar=1e-4", "--loss_bar=1e-5")
+MESH_TIMEOUT_S = 300
+
+
+def _run_json(cmd, timeout=MESH_TIMEOUT_S):
+    """cmd in a session of its own (_spawn); its last stdout line as JSON.
+    Every process it started is killed when it ends, fails or times out."""
+    proc = _spawn(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        _kill_children()
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[:6])} ... exited {proc.returncode}: "
+                             f"{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _mesh_rows(line):
+    """The printed numbers of each mesh of a distributed_smoke line."""
+    rows = []
+    for m in line["meshes"]:
+        r0 = m["rank0"]
+        prof = r0.get("profiled_step", {})
+        rows.append({"mesh": m["mesh"], "ok": m["ok"], "backend": r0["backend"],
+                     "device": r0["device"], "rel_diffs": m["rel_diffs"],
+                     "meta_grad_leaf_err": m["meta_grad_leaf_err"],
+                     "losses_rel": m["losses_rel"], "meta_losses_rel": m["meta_losses_rel"],
+                     "steps_per_s": r0.get("steps_per_s"),
+                     "draw_s_per_step": r0.get("draw_s_per_step"),
+                     "collectives_per_step": r0.get("collectives_per_step"),
+                     "launches_per_step": prof.get("launches"),
+                     "device_busy_ms": prof.get("device_busy_ms"),
+                     "idle_share": prof.get("idle_share"),
+                     "nccl_device_ms": prof.get("nccl_device_ms"),
+                     "max_memory_allocated_bytes": r0.get("max_memory_allocated_bytes"),
+                     "seconds": m["seconds"]})
+    ref = line["reference"]
+    return {"rows": rows, "reference": {k: ref.get(k) for k in (
+        "steps_per_s", "draw_s_per_step", "params_norm_after_step", "mean_meta_loss")},
+        "grad_bar": line["grad_bar"], "loss_bar": line["loss_bar"], "tol": line["tol"],
+        "seconds": line["seconds"]}
+
+
+def _smoke(*args):
+    return _run_json([sys.executable, "-m", "metapde_tpu_torch.cli.distributed_smoke",
+                      "--device=cuda", *args])
+
+
+def phase_mesh_train():
+    """The parallel layer on the card, ranks in processes of their own
+    (_spawn; gloo when they share the card, nccl when each has its own):
+    (a) bench.py's flagship at full width through cli/distributed_smoke,
+    one outer step on dp = 2, pt = 2 and 2 x 2 in f32 and on 2 x 2 in bf16
+    against the one-process step on the same draws and card (meta-gradient
+    within 1e-4 of each leaf's scale, losses rtol 1e-4; bf16 1e-2); (b)
+    pipeline/maml_meta_3d.sh's config at full width (5x128, 2048 points)
+    through the launcher and cli/maml_pde on dp = 2 at bsize 32: rank 0
+    alone writes the run files, val_rel_err finite and below
+    P3D_TRAIN_BAR, one siren_fused launch (rank 0's) per validation call;
+    (c) LEAP at lp2_4's width, one dp = 2 and one pt = 2 step against the
+    one-process step (LEAP's bars in cli/distributed_smoke). No process
+    is left behind."""
+    t0 = time.perf_counter()
+    if parse_overrides(Config(), FLAGSHIP_FLAGS) != train_bench.FLAGSHIP:
+        raise AssertionError("FLAGSHIP_FLAGS no longer parse to train_bench.FLAGSHIP")
+    torch.cuda.empty_cache()
+    parts, seconds = {}, {}
+    t = time.perf_counter()
+    parts["flagship_f32"] = _mesh_rows(_smoke(f"--meshes={MESH_FLAGSHIP_MESHES}",
+                                              *FLAGSHIP_FLAGS, "--model.compute_dtype=null"))
+    parts["flagship_bf16"] = _mesh_rows(_smoke("--meshes=2x2", *FLAGSHIP_FLAGS))
+    for name in ("flagship_f32", "flagship_bf16"):
+        parts[name]["reduced"] = {"outer steps": "1 compared, 2 timed, 1 profiled"}
+    seconds["a"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "out"
+        proc = _spawn([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                       f"--nproc_per_node={MESH_P3D_RANKS}", "-m",
+                       "metapde_tpu_torch.cli.maml_pde", *P3D_FLAGS, *MESH_P3D_FLAGS,
+                       *(f"--{k}={v}" for k, v in P3D_TRAIN_CUTS.items()),
+                       f"--train.out_dir={out}", "--train.expt_name=mesh"],
+                      cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                      # the launcher's default is 1 thread a rank: the host draw
+                      env=dict(os.environ, OMP_NUM_THREADS=str(max(
+                          1, len(os.sched_getaffinity(0)) // MESH_P3D_RANKS))))
+        try:
+            _, err = proc.communicate(timeout=MESH_TIMEOUT_S)
+        finally:
+            _kill_children()
+        if proc.returncode != 0:
+            raise AssertionError(f"the sharded poisson3d run exited {proc.returncode}: "
+                                 f"{err[-4000:]}")
+        run = out / "mesh"
+        last = P3D_TRAIN_CUTS["train.outer_steps"]
+        names = {p.name for p in run.iterdir()}
+        want = {"log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
+                f"checkpoint_step_{last}.pickle"}
+        if not want <= names or any(not n.startswith("checkpoint_step_")
+                                    for n in names - want):
+            raise AssertionError(f"the sharded run dir holds {sorted(names)}; want "
+                                 f"{sorted(want)} and periodic checkpoints")
+        log = (run / "log.txt").read_text().splitlines()
+        mesh_lines = [l for l in log if l.startswith("mesh: ")]
+        done = [l for l in log if l.startswith("done: ")]
+        if len(mesh_lines) != 1 or len(done) != 1:
+            raise AssertionError(f"log.txt has {len(mesh_lines)} mesh and {len(done)} done "
+                                 "lines: not one writer")
+        recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+        if [r["step"] for r in recs] != [1, 3]:
+            raise AssertionError(f"validation records at {[r['step'] for r in recs]}")
+        for r in recs:
+            if not (math.isfinite(r["val_rel_err"]) and r["val_rel_err"] < P3D_TRAIN_BAR
+                    and math.isfinite(r["meta_loss"])):
+                raise AssertionError(f"step {r['step']}: val_rel_err {r['val_rel_err']}, "
+                                     f"meta_loss {r['meta_loss']}")
+        words = done[0].split()
+        launches = int(words[words.index("process") + 1].rstrip(","))
+        peaks = json.loads(done[0].split("by rank ", 1)[1])
+        if launches != len(recs):
+            raise AssertionError(f"rank 0 launched siren_fused {launches} times for "
+                                 f"{len(recs)} validation calls")
+        backend = mesh_lines[0].split("backend ", 1)[1].split(",")[0]
+    step_s = statistics.mean(r["step_time"] for r in recs)
+    parts["poisson3d"] = {"backend": backend, "ranks": MESH_P3D_RANKS,
+                          "steps_per_s": 1.0 / step_s, "step_time": [r["step_time"] for r in
+                                                                     recs],
+                          "max_memory_allocated_bytes_by_rank": peaks,
+                          "val_rel_err": [r["val_rel_err"] for r in recs],
+                          "meta_loss": [r["meta_loss"] for r in recs],
+                          "deployment_time": [r["deployment_time"] for r in recs],
+                          "launches": launches, "validations": len(recs),
+                          "reduced": MESH_P3D_REDUCED}
+    seconds["b"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    parts["leap"] = _mesh_rows(_smoke("--algo=leap", f"--from_run={LEAP_RUN}",
+                                      f"--meshes={MESH_LEAP_MESHES}", "--timed_steps=0",
+                                      *MESH_LEAP_BARS))
+    parts["leap"]["reduced"] = {"train.outer_steps": "60000 -> 1 compared"}
+    seconds["c"] = time.perf_counter() - t
+    left = _descendants(os.getpid())
+    if left:
+        raise AssertionError(f"processes left behind: {left}")
+    cards = torch.cuda.device_count()
+    emit("mesh_train", t0, cards=cards, seconds=seconds, **parts)
+    failed = [(name, r["mesh"]) for name in ("flagship_f32", "flagship_bf16", "leap")
+              for r in parts[name]["rows"] if not r["ok"]]
+    if failed:
+        raise AssertionError(f"sharded steps disagree with the one-process step: {failed}")
+    return {"launches": launches, "poisson3d": parts["poisson3d"],
+            "flagship_f32": parts["flagship_f32"]["rows"], "seconds": seconds}
+
+
 PHASES = {
     "kernel": phase_kernel, "parity": phase_parity, "deploy": phase_deploy,
     "ground_truth_mg": phase_ground_truth_mg, "deploy_mg": phase_deploy_mg,
@@ -2320,6 +2547,7 @@ PHASES = {
     "poisson3d_train": phase_poisson3d_train, "nn_parity": phase_nn_parity,
     "nn_deploy_maml": phase_nn_deploy_maml, "nn_deploy_leap": phase_nn_deploy_leap,
     "nn_multistart": phase_nn_multistart, "solver_baseline": phase_solver_baseline,
+    "mesh_train": phase_mesh_train,
 }
 
 
@@ -2365,6 +2593,7 @@ def main(argv):
     nn_leap = phase_nn_deploy_leap()
     nn_ms = phase_nn_multistart()
     phase_solver_baseline()
+    mesh = phase_mesh_train()
     main_row, big = kern["main_path_batched"], kern["main_path_2pow20"]
     timing_keys = ("ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
                    "bound_f32_ms")
@@ -2423,6 +2652,8 @@ def main(argv):
             "tasks", "n", "max_abs_err", *timing_keys, "resident", "smem_bytes",
             "blocks_per_sm", "n_sm")}
            for case, row in (("nn_maml", "main_path"), ("nn_leap", "nn_leap_path"))},
+        # the sharded poisson3d run (rank 0's validation calls)
+        "mesh_train_launches": mesh["launches"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"training": {"train": train,
@@ -2437,7 +2668,8 @@ def main(argv):
                                    "steady_gt": steady_gt,
                                    "poisson3d_train": poisson3d_train,
                                    "nn_deploy_maml": nn_maml["step"],
-                                   "nn_deploy_leap": nn_leap["step"]},
+                                   "nn_deploy_leap": nn_leap["step"],
+                                   "mesh_train": mesh},
                       "ground_truth_mg": gt_mg,
                       "total_s": time.perf_counter() - T_START}), flush=True)
     print(json.dumps({"ok": True, "device": {

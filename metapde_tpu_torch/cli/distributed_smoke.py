@@ -1,0 +1,321 @@
+"""Sharded MAML (or LEAP) step against the one-process step, rank
+processes on localhost (counterpart of metapde_tpu/cli/distributed_smoke.py).
+
+For each mesh DPxPT the orchestrator starts DP * PT rank processes on a
+free localhost port, each in a session of its own (killed when the
+orchestrator ends, fails or is sent SIGTERM); rank 0 of the first mesh
+first takes the unsharded step (the reference) before its process group
+starts. Each run builds the MAML driver from the same config and seed,
+draws the first outer step on the host, takes its meta-gradient (grad_fn)
+and the step (step_core), then --timed_steps more steps; the ranks run
+the (dp, pt) mesh of parallel/. Rank 0 and the reference save
+their meta-gradient and losses; the orchestrator holds the sharded ones
+against the reference's: params_norm_after_step and mean_meta_loss within
+--tol relative (2e-5, as in the JAX package), every meta-gradient leaf
+within --grad_bar of its largest |entry| and the per-task losses within
+rtol --loss_bar (MAML defaults 1e-4 in f32, 1e-2 with a bf16 compute
+dtype; LEAP, whose increments carry a difference of two losses, 2e-2 and
+1e-5, tests/test_torch_leap.py's parity bars). Each rank takes
+cpu_count / ranks intra-op threads.
+
+    python -m metapde_tpu_torch.cli.distributed_smoke [--algo=maml|leap]
+        [--num_processes=4] [--meshes=2x1,1x2,2x2] [--device=cuda|cpu]
+        [--backend=nccl|gloo] [--tol=2e-5] [--timed_steps=2]
+        [config flags, e.g. --maml.bsize=16 or --from_run=DIR]
+
+--num_processes=N alone runs the (N/2 x 2) mesh. Without --backend the
+ranks take parallel/mesh.py's rule (nccl when every rank has its own card,
+gloo when they share one, gloo on the CPU). On a card, rank 0 also
+profiles one step: device launches, device-busy ms, idle share, and the
+device ms of NCCL's kernels; every rank counts its collectives (calls,
+bytes, host ms of the blocking calls). Prints one JSON line and exits 0
+only on agreement.
+"""
+
+import argparse
+import atexit
+import contextlib
+import json
+import os
+import signal
+import socket
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+from ..config import Config, parse_overrides
+
+RUN_TIMEOUT_S = 900  # one reference or one mesh's ranks
+DEFAULT_FLAGS = ["--task.inner_points=128", "--task.outer_points=128",
+                 "--task.validation_points=128", "--task.n_eval=2",
+                 "--model.num_layers=3", "--model.layer_size=64", "--maml.inner_steps=2"]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _leaf_err(got, want):
+    """The largest |got - want| over leaves, each over its leaf's scale."""
+    from ..utils.trees import tree_leaves
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-3)
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _rel(a, b):
+    return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+
+# --- a rank (or the reference) -----------------------------------------------
+
+def _profile_step(fn):
+    """fn() once under torch.profiler on the card: launches, device-busy ms,
+    idle share, NCCL kernels' device ms."""
+    from torch.autograd import DeviceType
+
+    from .profile_deploy import _busy_us
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    busy = _busy_us((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+                    for e in events)
+    nccl = [e for e in events if "nccl" in e.name().lower()]
+    return {"launches": len(events), "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / wall_us,
+            "nccl_kernels": len(nccl), "nccl_device_ms": sum(e.duration_ns() for e in nccl) / 1e6}
+
+
+def _measure(args, flags, device, mesh, backend):
+    """Build on `mesh` ("1x1": unsharded, no process group), take the
+    compared step, then the timed and the profiled steps; rank 0 saves
+    <out>/<mesh>.pt (meta-gradient, losses, its row). Returns the row."""
+    from ..models.siren import mixed_precision_scope
+    from ..parallel import mesh as mesh_mod
+    from ..train import leap_driver, maml_driver
+    from ..utils.trees import global_norm, tree_map
+
+    n_dp, n_pt = (int(x) for x in mesh.split("x"))
+    cfg = parse_overrides(Config(), flags + [f"--mesh.n_task_shards={n_dp}",
+                                             f"--mesh.n_point_shards={n_pt}"])
+    maml = args.algo == "maml"
+    c = (maml_driver if maml else leap_driver).build(cfg, device)
+    dev = c["device"]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        mesh_mod.barrier(c["mesh"])
+
+    params = c["init_params"]
+    if maml:
+        lrs = c["inner_lrs"]
+        state = (params, lrs, c["outer_opt"].init(params), c["lr_opt"].init(lrs))
+        n_state, meta_of = 4, lambda o: o[5][0]
+    else:
+        state, n_state, meta_of = (params, c["outer_opt"].init(params)), 2, lambda o: o[2][:, -1]
+    gen = c["generator"]
+    batch = c["draw_step_inputs"](gen)
+    with mixed_precision_scope(c["model_cfg"]):
+        if maml:
+            grads, losses, (meta, _) = c["grad_fn"](batch, params, lrs)
+        else:
+            grads, losses = c["grad_fn"](batch, params)
+            meta = losses[:, -1]
+    out = c["step_core"](batch, *state)
+    state = out[:n_state]
+    pnorm, mloss = float(global_norm(state[0])), float(meta_of(out).mean())
+
+    steps, draws, coll = [], [], []
+    for _ in range(args.timed_steps):
+        sync()
+        mesh_mod.collectives.reset()
+        t0 = time.perf_counter()
+        batch = c["draw_step_inputs"](gen)
+        t1 = time.perf_counter()
+        out = c["step_core"](batch, *state)
+        state = out[:n_state]
+        float(meta_of(out).mean())  # the loop's host read
+        sync()
+        steps.append(time.perf_counter() - t0)
+        draws.append(t1 - t0)
+        cc = mesh_mod.collectives
+        coll.append({"calls": cc.calls, "bytes": cc.bytes, "host_ms": cc.host_s * 1e3})
+    row = {"role": "reference" if c["mesh"] is None else f"rank{args.process_id}",
+           "algo": args.algo, "mesh": mesh, "backend": backend, "device": str(dev),
+           "params_norm_after_step": pnorm, "mean_meta_loss": mloss,
+           "compute_dtype": cfg.model.compute_dtype}
+    if steps:
+        row.update(steps_per_s=1.0 / statistics.mean(steps),
+                   draw_s_per_step=statistics.mean(draws), collectives_per_step=coll[-1])
+    if dev.type == "cuda" and steps:
+        batch = c["draw_step_inputs"](gen)
+        sync()
+        # twice, the second kept: the profiler's first start in a process takes
+        # seconds, which a collective of the other ranks would spin through
+        for _ in range(2):
+            row["profiled_step"] = _profile_step(lambda: c["step_core"](batch, *state))
+            sync()
+        row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    sync()
+    if args.process_id == 0:
+        cpu = lambda t: t.detach().float().cpu()  # noqa: E731
+        torch.save({"grads": tree_map(cpu, grads), "losses": cpu(losses), "meta": cpu(meta),
+                    "row": row}, Path(args.out) / f"{mesh}.pt")
+    return row
+
+
+def worker_main(args, flags):
+    """A rank; with --with_reference (rank 0 of the first mesh) it first
+    takes the one-process step itself, before its process group starts,
+    which spares the reference a process of its own."""
+    from ..device import resolve_device
+    from ..parallel import mesh as mesh_mod
+
+    device = resolve_device(args.device)
+    # the ranks share the host's cores (the host draw, the CPU's kernels)
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // args.num_processes))
+    if args.with_reference:
+        _measure(args, flags, device, "1x1", None)
+    backend = mesh_mod.initialize_distributed(
+        args.coordinator, args.num_processes, args.process_id, backend=args.backend,
+        device_type=device.type)
+    row = _measure(args, flags, device, args.mesh, backend)
+    if args.process_id == 0:
+        print(json.dumps(row), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+# --- the orchestrator ----------------------------------------------------------
+
+class _Ranks:
+    """The processes the orchestrator started, each in a session of its own,
+    SIGKILLed (with their process groups) by close(), at exit and on
+    SIGTERM."""
+
+    def __init__(self):
+        self.procs = []
+        atexit.register(self.close)
+        signal.signal(signal.SIGTERM, self._on_sigterm)
+
+    def start(self, cmd, env):
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True, start_new_session=True)
+        self.procs.append(proc)
+        return proc
+
+    def close(self):
+        for proc in self.procs:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            with contextlib.suppress(Exception):
+                proc.wait(timeout=10)
+        self.procs = []
+
+    def _on_sigterm(self, signum, frame):
+        self.close()
+        os._exit(128 + signum)
+
+
+def _run(ranks, cmds, env):
+    """Run the commands at once; returns the first one's last JSON line."""
+    procs = [ranks.start(cmd, dict(env, **extra)) for cmd, extra in cmds]
+    deadline = time.monotonic() + RUN_TIMEOUT_S
+    try:
+        outs = [p.communicate(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    finally:
+        ranks.close()
+    for i, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            sys.stderr.write(err[-6000:])
+            raise RuntimeError(f"process {i} of {len(procs)} exited {p.returncode}")
+    return json.loads(outs[0][0].strip().splitlines()[-1])
+
+
+def orchestrate(args, flags):
+    repo = str(Path(__file__).resolve().parents[2])
+    env = dict(os.environ, PYTHONPATH=repo)
+    base = [sys.executable, "-m", "metapde_tpu_torch.cli.distributed_smoke",
+            f"--algo={args.algo}", f"--device={args.device}",
+            f"--timed_steps={args.timed_steps}"]
+    if args.backend:
+        base.append(f"--backend={args.backend}")
+    meshes = args.meshes.split(",") if args.meshes else [f"{args.num_processes // 2}x2"]
+    bf16 = parse_overrides(Config(), flags).model.compute_dtype is not None
+    grad_bar = args.grad_bar or (1e-2 if bf16 else 1e-4 if args.algo == "maml" else 2e-2)
+    loss_bar = args.loss_bar or (1e-2 if bf16 else 1e-4 if args.algo == "maml" else 1e-5)
+    ranks = _Ranks()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        common = base + [f"--out={out}"]
+        rows, ok, ref = [], True, None
+        for mesh in meshes:
+            n_dp, n_pt = (int(x) for x in mesh.split("x"))
+            n = n_dp * n_pt
+            port = _free_port()
+            cmds = [(common + [f"--process_id={r}", f"--num_processes={n}", f"--mesh={mesh}",
+                               f"--coordinator=tcp://127.0.0.1:{port}"]
+                     + (["--with_reference"] if ref is None and r == 0 else []) + flags,
+                     {"LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(n), "WORLD_SIZE": str(n)})
+                    for r in range(n)]
+            t1 = time.perf_counter()
+            row = _run(ranks, cmds, env)
+            if ref is None:
+                reference = torch.load(Path(out) / "1x1.pt")
+                ref = reference["row"]
+            got = torch.load(Path(out) / f"{mesh}.pt")
+            diffs = {k: abs(ref[k] - row[k]) / max(abs(ref[k]), 1e-12)
+                     for k in ("params_norm_after_step", "mean_meta_loss")}
+            errs = {"meta_grad_leaf_err": _leaf_err(got["grads"], reference["grads"]),
+                    "losses_rel": _rel(got["losses"], reference["losses"]),
+                    "meta_losses_rel": _rel(got["meta"], reference["meta"])}
+            agree = (all(d <= args.tol for d in diffs.values())
+                     and errs["meta_grad_leaf_err"] <= grad_bar
+                     and max(errs["losses_rel"], errs["meta_losses_rel"]) <= loss_bar)
+            ok = ok and agree
+            rows.append({"mesh": mesh, "ok": agree, "rel_diffs": diffs, **errs,
+                         "seconds": time.perf_counter() - t1, "rank0": row})
+    print(json.dumps({"ok": ok, "meshes": rows, "reference": ref, "tol": args.tol,
+                      "grad_bar": grad_bar, "loss_bar": loss_bar, "flags": flags,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return ok
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--algo", choices=("maml", "leap"), default="maml")
+    p.add_argument("--num_processes", type=int, default=4)
+    p.add_argument("--meshes", default=None)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--backend", default=None)
+    p.add_argument("--tol", type=float, default=2e-5)
+    p.add_argument("--grad_bar", type=float, default=None)
+    p.add_argument("--loss_bar", type=float, default=None)
+    p.add_argument("--timed_steps", type=int, default=2)
+    # set by the orchestrator in the processes it starts
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--mesh", default="1x1")
+    p.add_argument("--out", default=None)
+    p.add_argument("--with_reference", action="store_true")
+    args, flags = p.parse_known_args(argv)
+    if not any(f.startswith("--from_run=") for f in flags):
+        flags = DEFAULT_FLAGS + flags
+    if args.process_id is None:
+        sys.exit(0 if orchestrate(args, flags) else 1)
+    worker_main(args, flags)
+
+
+if __name__ == "__main__":
+    main()

@@ -15,14 +15,27 @@ metrics.jsonl:
     python -m metapde_tpu_torch.cli.maml_pde --from_run=results_burgers_maml/bm7_5 \
         --train.outer_steps=500011 --train.viz_every=0 --train.expt_name=more
 
-and a poisson3d run validates against the exact manufactured solution
-(pipeline/maml_meta_3d.sh's flags, without the mesh on one card).
+and a poisson3d run validates against the exact manufactured solution.
+
+Sharded over a (dp, pt) mesh, one process per rank, started by the
+launcher (WORLD_SIZE set: the process group starts before the build, with
+nccl when every rank has a card of its own, gloo when ranks share one or
+on the CPU; rank 0 writes the run directory), e.g. pipeline/maml_meta_3d.sh
+on two cards:
+
+    python -m torch.distributed.run --standalone --nproc_per_node=2 \
+        -m metapde_tpu_torch.cli.maml_pde --task.pde=poisson3d \
+        --mesh.n_task_shards=2 --maml.bsize=32 --train.viz_every=0 ...
+
+The world size must equal n_task_shards * n_point_shards; under the
+launcher --device=cpu runs gloo ranks on the CPU.
 """
 
 import sys
 
 from ..config import Config, parse_overrides
 from ..device import pop_device_flag
+from ..parallel.mesh import process_group
 from ..train import maml_driver
 
 
@@ -30,7 +43,8 @@ def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     device, argv = pop_device_flag(argv)
     cfg = parse_overrides(Config(), argv)
-    return maml_driver.run(cfg, device=device)
+    with process_group(device):
+        return maml_driver.run(cfg, device=device)
 
 
 if __name__ == "__main__":

@@ -27,14 +27,22 @@ Points are given, not drawn: `TaskBatch.points` holds, per point kind,
 [T, 2K + 1, n, ...] in the order the JAX key chain consumes them. Set 0
 gives the loss at the init (the first key of split(key)); for inner step k
 (from 1), set 2k - 1 gives the gradient (its k1) and set 2k the loss after
-the step (its k2). ``pt_axis`` (collocation points sharded over a mesh
-axis) is not ported: the training functions raise NotImplementedError.
+the step (its k2).
+
+Collocation points sharded over a pt process group (``pt_axis``, set by
+parallel/sharding.py): each rank's losses are means over its own part of
+the points; the loss and gradient of each step (one collective), the loss
+after it and the loss at the init are averaged over pt before the clip,
+Adam and the increment, so every pt rank walks the same trajectory and
+holds the same accumulator. No autograd crosses a collective: the method
+is first order.
 """
 
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..parallel.mesh import tree_mean
 from ..train.optimizers import Optimizer, apply_updates
 from ..utils.trees import (clip_by_global_norm_per_task, per_task, sum_sq_per_task,
                            tree_leaves, tree_map, tree_unflatten)
@@ -49,7 +57,7 @@ class LeapDef(NamedTuple):
     loss_in_distance: bool  # include d_loss in the manifold metric
     stabilize: bool         # d_loss <- -|d_loss|
     inner_grad_clip: float
-    pt_axis: Optional[str] = None
+    pt_axis: Optional[object] = None  # the pt process group, or None
 
 
 class TaskBatch(NamedTuple):
@@ -99,15 +107,16 @@ def leap_inner_step(leap_def: LeapDef, loss_fn: Callable, params, opt_state, acc
         loss, _ = loss_fn(tree_unflatten(params, leaves), grad_points)
         grads = torch.autograd.grad(loss.sum(), leaves)
     with torch.no_grad():
-        grad, _ = clip_by_global_norm_per_task(tree_unflatten(params, grads),
-                                               leap_def.inner_grad_clip)
+        grads, loss = tree_mean((tree_unflatten(params, grads), loss.detach()),
+                                leap_def.pt_axis)
+        grad, _ = clip_by_global_norm_per_task(grads, leap_def.inner_grad_clip)
         updates, opt_state = leap_def.inner_opt.update(grad, opt_state, params)
         new_params = apply_updates(params, updates)
         if accum is None:
             return new_params, opt_state, None, None
-        new_loss, _ = loss_fn(new_params, loss_points)
-        increment = get_meta_grad_increment(leap_def, new_params, params, new_loss,
-                                            loss.detach(), grad)
+        new_loss = tree_mean(loss_fn(new_params, loss_points)[0], leap_def.pt_axis)
+        increment = get_meta_grad_increment(leap_def, new_params, params, new_loss, loss,
+                                            grad)
         accum = tree_map(lambda a, i: a + i, accum, increment)
     return new_params, opt_state, accum, new_loss
 
@@ -142,7 +151,7 @@ def rollout(leap_def: LeapDef, task_loss: Callable, batch: TaskBatch, initial_pa
                 leap_def, loss_fn, theta, opt_state, None, _set(batch.points, k))
         return theta, None, None
     with torch.no_grad():
-        losses = [loss_fn(theta, _set(batch.points, 0))[0]]
+        losses = [tree_mean(loss_fn(theta, _set(batch.points, 0))[0], leap_def.pt_axis)]
     accum = tree_map(torch.zeros_like, theta)
     for k in range(1, k_steps + 1):
         theta, opt_state, accum, new_loss = leap_inner_step(
@@ -164,16 +173,10 @@ def single_task_rollout(leap_def: LeapDef, task_loss: Callable, task: TaskBatch,
     return tree_map(lambda x: x[0], out)
 
 
-def _check_training(leap_def: LeapDef):
-    if leap_def.pt_axis is not None:
-        raise NotImplementedError("collocation-point sharding (pt_axis) is not ported yet")
-
-
 def multi_task_grad_and_losses(leap_def: LeapDef, task_loss: Callable, batch: TaskBatch,
                                initial_params):
     """The mean over T tasks of the LEAP meta-gradient. Returns
     (meta_grad, losses [T, K + 1])."""
-    _check_training(leap_def)
     _, accum, losses = rollout(leap_def, task_loss, batch, initial_params)
     return tree_map(lambda g: g.mean(dim=0), accum), losses
 

@@ -24,6 +24,18 @@ per task. The meta-gradient of the mean meta-loss equals the JAX package's
 mean over tasks of per-task meta-gradients, because the backward of expand
 sums over the task axis. ``remat`` wraps each inner step in
 torch.utils.checkpoint (non-reentrant), the counterpart of jax.checkpoint.
+
+Collocation points sharded over a pt process group (``pt_axis``, set by
+parallel/sharding.py): each rank's losses are means over its own part of
+the points. Each inner gradient [T, ...] is averaged over pt through
+AllReduceSum (outside vmap, before the LR scaling and the clip, as the JAX
+package's pmean), so every pt rank walks the same trajectory. The
+meta-gradient: each rank backpropagates its LOCAL meta-loss (the backward
+of AllReduceSum sums the ranks' cotangents; seeding it with an already
+reduced loss would count each one n_pt times), then the parameter and LR
+gradients are averaged over pt. The logged losses, meta-losses and outer
+aux are separate, non-differentiable pt means. With remat the collective
+runs again in the backward, in the same order on every rank.
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -32,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import tree_mean
 from ..utils.trees import (clip_by_global_norm, clip_by_global_norm_per_task, tree_leaves,
                            tree_map, tree_structure_equal, tree_unflatten)
 
@@ -41,8 +54,8 @@ class MamlDef(NamedTuple):
 
     ``unroll`` is lax.scan's unroll factor in the JAX package, a compile-time
     knob with nothing to do in eager code: it is accepted and ignored.
-    ``pt_axis`` (collocation points sharded over a mesh axis) is not ported:
-    the training functions raise NotImplementedError when it is set."""
+    ``pt_axis``: the pt process group when the collocation points are
+    sharded (parallel/sharding.py), else None."""
 
     inner_lr: float
     inner_steps: int
@@ -51,7 +64,7 @@ class MamlDef(NamedTuple):
     inner_grad_clip: float
     remat: bool = True
     unroll: int = 1
-    pt_axis: Optional[str] = None
+    pt_axis: Optional[object] = None
 
 
 class TaskBatch(NamedTuple):
@@ -142,6 +155,9 @@ def _batched_rollout(maml_def: MamlDef, task_loss: Callable, batch: TaskBatch,
         with torch.enable_grad():
             loss, _ = vloss(theta, inner_pts, batch.task_params)
             grads = torch.autograd.grad(loss.sum(), leaves, create_graph=create_graph)
+        if maml_def.pt_axis is not None:
+            # the full point set's gradient, one collective for the tree
+            grads = tree_mean(list(grads), maml_def.pt_axis, differentiable=create_graph)
         grads = _scale_by_lrs(tree_unflatten(theta, grads), lr, maml_def.softplus_lrs)
         grads, _ = clip_by_global_norm_per_task(grads, maml_def.inner_grad_clip)
         new = tree_map(lambda p, g: p - maml_def.inner_lr * g, theta, grads)
@@ -171,11 +187,6 @@ def _batched_rollout(maml_def: MamlDef, task_loss: Callable, batch: TaskBatch,
     return theta, torch.stack(losses, dim=1), meta_loss
 
 
-def _check_training(maml_def: MamlDef):
-    if maml_def.pt_axis is not None:
-        raise NotImplementedError("collocation-point sharding (pt_axis) is not ported yet")
-
-
 def multi_task_grad_and_losses(maml_def: MamlDef, task_loss: Callable, batch: TaskBatch,
                                initial_params, inner_lrs=None, need_grad: bool = True):
     """The mean over T tasks of the second-order meta-gradient.
@@ -188,8 +199,8 @@ def multi_task_grad_and_losses(maml_def: MamlDef, task_loss: Callable, batch: Ta
     params grad alone for unit LRs, and outer_aux is the outer loss's aux
     dict at the final params on the aux point set. With need_grad=False the
     unroll is first order and meta_grad is None (the losses are the same).
+    With maml_def.pt_axis set, every output is the mean over the pt group.
     """
-    _check_training(maml_def)
     n_tasks = batch.task_params[0].shape[0]
     params = tree_map(lambda p: p.detach().requires_grad_(need_grad), initial_params)
     if inner_lrs is None:
@@ -212,7 +223,10 @@ def multi_task_grad_and_losses(maml_def: MamlDef, task_loss: Callable, batch: Ta
         meta_grad = tree_unflatten(params, flat[:n])
         if inner_lrs is not None:
             meta_grad = (meta_grad, tree_unflatten(lrs, flat[n:]))
-    return meta_grad, losses, (meta_loss.detach(), outer_aux)
+    out = (losses, meta_loss.detach(), outer_aux) + ((meta_grad,) if need_grad else ())
+    out = tree_mean(out, maml_def.pt_axis)  # one collective: grads and logged losses
+    losses, meta_loss, outer_aux = out[:3]
+    return (out[3] if need_grad else None), losses, (meta_loss, outer_aux)
 
 
 def single_task_grad_and_losses(maml_def: MamlDef, task_loss: Callable, task: TaskBatch,

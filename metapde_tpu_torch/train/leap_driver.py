@@ -34,7 +34,11 @@ Adam state carries over). Its NaN abort reads the per-step meta-losses
 the JAX driver reads the mean of the whole history: a NaN loss gives NaN
 params and so a NaN last loss. Every family of the JAX package trains;
 deploy.n_starts > 1 wraps the deployment in the multi-start
-(train/multistart.py). Not ported: a mesh, viz_every and profile_dir;
+(train/multistart.py). A mesh shards the training step over a
+torch.distributed process group as in the MAML driver (every rank draws
+the whole step and keeps its share; the pt means in meta/leap.py, the dp
+mean and the loss gather in parallel/sharding.py); validation_losses and
+the deployment stay unsharded. Not ported: viz_every and profile_dir;
 each raises NotImplementedError.
 """
 
@@ -44,6 +48,8 @@ from ..config import Config
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..meta import leap
 from ..models.siren import mixed_precision_scope
+from ..parallel.mesh import rank_device
+from ..parallel.sharding import check_task_split, make_sharded_leap_grad_fn, shard_batch
 from ..utils.trees import global_norm, tree_map, tree_stack
 from . import loop, multistart
 from .deploy import coef_funcs, draw_sets, expand_tasks, make_opt_final_model, one_task
@@ -55,6 +61,10 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
     (CUDA unless the caller asks for the CPU); returns a dict."""
     pde, model_cfg, field, loss_fn, task_loss = loop.problem(cfg)
     device = resolve_device(str(device))
+    mesh = loop.mesh_of(cfg)
+    if mesh is not None:
+        check_task_split(cfg.leap.bsize, mesh)
+        device = rank_device(device)
     leap_def = leap.LeapDef(
         inner_opt=adam(cfg.leap.inner_lr, b1=0.9, b2=0.99),
         inner_steps=cfg.leap.inner_steps,
@@ -68,20 +78,31 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
     outer_opt = get_optimizer(cfg.train.optimizer, cfg.leap.outer_lr)
 
     # --- train step ---------------------------------------------------------
-    def draw_step_inputs(gen):
+    def draw_all(gen):
         """One outer step's draws for T = bsize tasks, from `gen` (on the
-        host by default), on the device: a leap.TaskBatch."""
+        host by default): a leap.TaskBatch."""
         task_params = tree_stack([pde.sample_params(gen) for _ in range(cfg.leap.bsize)])
         points = pde.sample_points_batched(gen, cfg.task.inner_points, task_params,
                                            2 * cfg.leap.inner_steps + 1)
-        return loop.to_device(leap.TaskBatch(task_params, points), device)
+        return leap.TaskBatch(task_params, points)
+
+    def draw_step_inputs(gen):
+        """draw_all's batch on the device; under a mesh this rank's share."""
+        batch = draw_all(gen)
+        return loop.to_device(batch if mesh is None else shard_batch(batch, mesh), device)
+
+    if mesh is None:
+        def grad_fn(batch, params):
+            return leap.multi_task_grad_and_losses(leap_def, task_loss, batch, params)
+    else:
+        grad_fn = make_sharded_leap_grad_fn(leap_def, task_loss, mesh)
 
     def step_core(batch, params, opt_state):
-        """One outer step on given draws (the JAX package's _step_core).
-        Returns (params, opt_state, losses [T, K + 1], meta_grad_norm)."""
+        """One outer step on given draws (the JAX package's _step_core);
+        under a mesh, this rank's share of them (shard_batch). Returns
+        (params, opt_state, losses [T, K + 1], meta_grad_norm)."""
         with mixed_precision_scope(model_cfg):
-            meta_grad, losses = leap.multi_task_grad_and_losses(leap_def, task_loss, batch,
-                                                                params)
+            meta_grad, losses = grad_fn(batch, params)
         with torch.no_grad():
             meta_grad_norm = global_norm(meta_grad)
             clip = cfg.leap.grad_clip
@@ -109,7 +130,7 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
     def validation_losses(params):
         """The rollout's losses [T, K + 1] on a fixed draw from a generator
         seeded 0 (the JAX package's PRNGKey(0))."""
-        batch = draw_step_inputs(torch.Generator().manual_seed(0))
+        batch = loop.to_device(draw_all(torch.Generator().manual_seed(0)), device)
         with mixed_precision_scope(model_cfg):
             return leap.multi_task_grad_and_losses(leap_def, task_loss, batch, params)[1]
 
@@ -152,7 +173,9 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
         task_loss=task_loss,
         init_params=init_params,
         outer_opt=outer_opt,
+        draw_all=draw_all,
         draw_step_inputs=draw_step_inputs,
+        grad_fn=grad_fn,
         step_core=step_core,
         train_step=train_step,
         train_step_many=train_step_many,
@@ -165,6 +188,7 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
         make_coef_func_batched=make_coef_func_batched,
         generator=generator,
         device=device,
+        mesh=mesh,
     )
 
 

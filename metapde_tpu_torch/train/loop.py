@@ -7,9 +7,18 @@ A driver gives the loop its state as a dict keyed by checkpoint names: the
 model parts in the JAX layout ("params", and MAML's "inner_lrs"), and one
 entry per optimizer state ("opt_state", MAML's "lr_opt_state"), which the
 port saves under "torch_<name>" so the JAX package never reads them.
+
+Under a mesh (the driver's build holds it under "mesh") every rank runs
+the loop and every step, and ends each step with the same state; rank 0
+alone writes log.txt, metrics.jsonl, config.json and the checkpoints,
+solves or reads the ground truth and validates, and every rank waits at a
+barrier after its validation or checkpoint. The NaN abort reads the
+gathered meta-losses, the same on every rank, so all stop together. A
+resume loads the same checkpoint on every rank.
 """
 
 import dataclasses
+import json
 import os
 from functools import partial
 from typing import Callable, NamedTuple
@@ -19,6 +28,8 @@ import torch
 from ..config import Config
 from ..interop import params_from_numpy
 from ..models import make_field
+from ..ops import siren_fused
+from ..parallel.mesh import barrier, gather_values, is_writer, make_mesh
 from ..pdes import get_pde
 from ..utils import Timer
 from ..utils.trees import tree_map
@@ -46,10 +57,7 @@ def to_device(tree, device):
 
 def problem(cfg: Config):
     """The parts both meta-learners' builds share: (pde, model_cfg, field,
-    loss_fn, task_loss). Raises for the build options not ported yet."""
-    if cfg.mesh.n_task_shards > 1 or cfg.mesh.n_point_shards > 1:
-        raise NotImplementedError("a device mesh (mesh.n_task_shards or "
-                                  "n_point_shards > 1) is not ported yet")
+    loss_fn, task_loss)."""
     pde = get_pde(cfg.task)
     model_cfg = dataclasses.replace(
         cfg.model, in_dim=pde.in_dim, out_dim=pde.out_dim,
@@ -69,6 +77,15 @@ def problem(cfg: Config):
         return loss_fn(field.bind(field_params), points, task_params)
 
     return pde, model_cfg, field, loss_fn, task_loss
+
+
+def mesh_of(cfg: Config):
+    """The (dp, pt) mesh of cfg.mesh over the started process group, or
+    None for an unsharded run (parallel/mesh.py::make_mesh raises without a
+    process group or for a world size other than the mesh's)."""
+    if cfg.mesh.n_task_shards <= 1 and cfg.mesh.n_point_shards <= 1:
+        return None
+    return make_mesh(cfg.mesh.n_task_shards, cfg.mesh.n_point_shards)
 
 
 def validation_kwargs(task_cfg):
@@ -209,8 +226,16 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
     train/energy.py),
     keeps the best checkpoint and writes periodic and final ones.
     c: the driver's build; s: the fresh state. Returns the final state."""
-    path, log, metrics = start_run(cfg, learner.name)
+    mesh = c["mesh"]
+    writer = is_writer(mesh)
+    if writer:
+        path, log, metrics = start_run(cfg, learner.name)
+    else:
+        check_run_options(cfg)
+        path, log, metrics = None, lambda *_: None, None
     device, gen = c["device"], c["generator"]
+    if mesh is not None:
+        log(f"mesh: {mesh.shape} (dp x pt), backend {mesh.backend}, rank 0 on {device}")
 
     resume_step, eval_seed = 0, None
     if cfg.train.load_model_from_expt:
@@ -220,20 +245,9 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
     # checkpoint; a fresh run draws the seed from the training generator
     if eval_seed is None:
         eval_seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
-    bundle = eval_ground_truth(cfg, c["pde"], eval_seed, device, log)
-    # branch-aware validation: each eval task's oracle energy once on fixed
-    # audit points; each validation compares the adapted model's energy on
-    # the same points (train/energy.py)
-    branch_kwargs = {}
-    if cfg.train.branch_aware_val:
-        branch_kwargs = make_branch_kwargs(c["pde"], bundle, c["deploy_final_model_batched"],
-                                           c["field"], learner.inner_steps,
-                                           cfg.task.validation_points)
-        log("branch-aware validation on: oracle energies "
-            f"{[round(float(e), 5) for e in branch_kwargs['oracle_energy']]}")
-    validation_fn = make_validation_fn(
-        c["pde"], partial(c["make_coef_func_batched"], inner_steps=learner.inner_steps),
-        cfg.task.n_eval, **validation_kwargs(cfg.task), **branch_kwargs)
+    if writer:
+        validation_fn, bundle = _validation(cfg, c, learner, eval_seed, log)
+    barrier(mesh)
 
     def _state(step):
         return {**{k: v for k, v in s.items() if k not in learner.opts},
@@ -257,7 +271,9 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
             log(f"encountered nan at step {log_step}")
             break
 
-        if hit(cfg, cfg.train.val_every or cfg.train.log_every, step):
+        validate = hit(cfg, cfg.train.val_every or cfg.train.log_every, step)
+        save = step > 1 and hit(cfg, cfg.train.checkpoint_every, step)
+        if validate and writer:
             with Timer() as deploy_timer:
                 val = validation_fn(learner.model(s), bundle.gt_params, bundle.coords,
                                     bundle.gt_vals)
@@ -302,11 +318,37 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
                     cfg.train.best_metric, val.rel_err)
                 ckpt.save_best_checkpoint(path, log_step, float(best_val), _state(step))
 
-        if path is not None and step > 1 and hit(cfg, cfg.train.checkpoint_every, step):
+        if path is not None and save:
             ckpt.save_checkpoint(path, log_step, _state(step))
+        if validate or save:
+            barrier(mesh)
 
     if path is not None:
         ckpt.save_checkpoint(path, step, _state(step))
     if metrics is not None:
         metrics.close()
+    peaks = gather_values(torch.cuda.max_memory_allocated(device) if device.type == "cuda"
+                          else None, mesh)
+    log(f"done: {step} steps, siren_fused launches in this process "
+        f"{siren_fused.siren_apply_fused_batched.launches}, "
+        f"peak device memory by rank {json.dumps(peaks)}")
     return s
+
+
+def _validation(cfg: Config, c: dict, learner: Learner, eval_seed: int, log):
+    """The eval tasks' ground truth and the validation fn of run()."""
+    bundle = eval_ground_truth(cfg, c["pde"], eval_seed, c["device"], log)
+    # branch-aware validation: each eval task's oracle energy once on fixed
+    # audit points; each validation compares the adapted model's energy on
+    # the same points (train/energy.py)
+    branch_kwargs = {}
+    if cfg.train.branch_aware_val:
+        branch_kwargs = make_branch_kwargs(c["pde"], bundle, c["deploy_final_model_batched"],
+                                           c["field"], learner.inner_steps,
+                                           cfg.task.validation_points)
+        log("branch-aware validation on: oracle energies "
+            f"{[round(float(e), 5) for e in branch_kwargs['oracle_energy']]}")
+    validation_fn = make_validation_fn(
+        c["pde"], partial(c["make_coef_func_batched"], inner_steps=learner.inner_steps),
+        cfg.task.n_eval, **validation_kwargs(cfg.task), **branch_kwargs)
+    return validation_fn, bundle

@@ -33,9 +33,17 @@ one batched call.
 Every family of the JAX package trains (its point kinds, each
 [T, sets, n_kind, in_dim], go through the same TaskBatch).
 deploy.n_starts > 1 wraps the deployment in the multi-start
-(train/multistart.py). Not ported: a mesh (mesh.n_task_shards or
-n_point_shards > 1), viz_every and profile_dir; each raises
-NotImplementedError.
+(train/multistart.py).
+
+A mesh (mesh.n_task_shards or n_point_shards > 1) shards the training step
+over the ranks of a torch.distributed process group (parallel/): every
+rank draws the whole step on the host and keeps its tasks and points
+(shard_batch), the sharded grad fn runs on rank_device(device), and every
+rank ends the step with the same state. validation_losses, the deployment
+and make_coef_func* stay unsharded, as in the JAX package; run() validates
+and writes on rank 0 (train/loop.py). Without a process group a mesh
+raises, naming torchrun. Not ported: viz_every and profile_dir; each
+raises NotImplementedError.
 """
 
 import torch
@@ -44,6 +52,8 @@ from ..config import Config
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..meta import maml
 from ..models.siren import mixed_precision_scope
+from ..parallel.mesh import rank_device
+from ..parallel.sharding import check_task_split, make_sharded_maml_grad_fn, shard_batch
 from ..utils.trees import global_norm, tree_map, tree_stack
 from . import loop, multistart
 from .deploy import coef_funcs, make_opt_final_model
@@ -55,6 +65,10 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
     (CUDA unless the caller asks for the CPU); returns a dict."""
     pde, model_cfg, field, loss_fn, task_loss = loop.problem(cfg)
     device = resolve_device(str(device))
+    mesh = loop.mesh_of(cfg)
+    if mesh is not None:
+        check_task_split(cfg.maml.bsize, mesh)
+        device = rank_device(device)
 
     maml_def = maml.MamlDef(
         inner_lr=cfg.maml.inner_lr,
@@ -76,25 +90,35 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
     lr_opt = adam(cfg.maml.lr_inner_lr, b1=0.9, b2=0.99)
 
     # --- train step ---------------------------------------------------------
-    def draw_step_inputs(gen):
+    def draw_all(gen):
         """One outer step's draws for T = bsize tasks, from `gen` (on the
-        host by default), on the device: a maml.TaskBatch."""
+        host by default): a maml.TaskBatch."""
         n_sets = cfg.maml.inner_steps + 1
         tps = [pde.sample_params(gen) for _ in range(cfg.maml.bsize)]
         task_params = tree_stack(tps)
-        batch = maml.TaskBatch(
+        return maml.TaskBatch(
             task_params=task_params,
             inner_points=pde.sample_points_batched(gen, cfg.task.inner_points,
                                                    task_params, n_sets),
             outer_points=pde.sample_points_batched(gen, cfg.task.outer_points,
                                                    task_params, n_sets))
-        return loop.to_device(batch, device)
+
+    def draw_step_inputs(gen):
+        """draw_all's batch on the device; under a mesh this rank's share."""
+        batch = draw_all(gen)
+        return loop.to_device(batch if mesh is None else shard_batch(batch, mesh), device)
+
+    if mesh is None:
+        def grad_fn(batch, params, lrs):
+            return maml.multi_task_grad_and_losses(maml_def, task_loss, batch, params, lrs)
+    else:
+        grad_fn = make_sharded_maml_grad_fn(maml_def, task_loss, mesh)
 
     def step_core(batch, params, lrs, opt_state, lr_opt_state):
-        """One outer step on given draws (the JAX package's _step_core)."""
+        """One outer step on given draws (the JAX package's _step_core);
+        under a mesh, this rank's share of them (shard_batch)."""
         with mixed_precision_scope(model_cfg):
-            (model_grad, lr_grad), losses, meta_losses = maml.multi_task_grad_and_losses(
-                maml_def, task_loss, batch, params, lrs)
+            (model_grad, lr_grad), losses, meta_losses = grad_fn(batch, params, lrs)
         with torch.no_grad():
             # norm on the model part, the scale applied to both
             meta_grad_norm = global_norm(model_grad)
@@ -128,7 +152,7 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
     def validation_losses(params, lrs):
         """Losses and meta-losses (no meta-gradient) on a fixed draw from a
         generator seeded 0 (the JAX package's PRNGKey(0))."""
-        batch = draw_step_inputs(torch.Generator().manual_seed(0))
+        batch = loop.to_device(draw_all(torch.Generator().manual_seed(0)), device)
         _, losses, meta_losses = maml.multi_task_grad_and_losses(
             maml_def, task_loss, batch, params, lrs, need_grad=False)
         return losses, meta_losses
@@ -192,7 +216,9 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
         inner_lrs=inner_lrs,
         outer_opt=outer_opt,
         lr_opt=lr_opt,
+        draw_all=draw_all,
         draw_step_inputs=draw_step_inputs,
+        grad_fn=grad_fn,
         step_core=step_core,
         train_step=train_step,
         train_step_many=train_step_many,
@@ -204,6 +230,7 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
         make_coef_func_batched=make_coef_func_batched,
         generator=generator,
         device=device,
+        mesh=mesh,
     )
 
 

@@ -45,8 +45,9 @@ runs of one seed validate on the same coords; its ground truth goes through
 
 What differs from the JAX package, on purpose: checkpoints hold the
 optimizer state as torch_opt_state (the JAX package's opt_state and
-prng_key are optax and JAX objects the port does not write). Not ported:
-a device mesh (mesh.n_task_shards or n_point_shards > 1) raises.
+prng_key are optax and JAX objects the port does not write). cfg.mesh is
+ignored: the run trains in one process, as the JAX driver, which never
+reads it, does.
 """
 
 import dataclasses

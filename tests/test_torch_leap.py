@@ -45,6 +45,8 @@ from metapde_tpu.train import leap_driver as j_driver
 from metapde_tpu_torch.config import Config, parse_overrides
 from metapde_tpu_torch.interop import params_from_numpy
 from metapde_tpu_torch.meta import leap
+from metapde_tpu_torch.parallel.mesh import Mesh
+from metapde_tpu_torch.parallel.sharding import shard_task_loss_points
 from metapde_tpu_torch.train import leap_driver
 from metapde_tpu_torch.utils.trees import tree_leaves, tree_map
 
@@ -246,10 +248,15 @@ def test_rollout_refuses_a_wrong_number_of_point_sets():
         leap.rollout(tc["leap_def"], tc["task_loss"], batch, init, accumulate=False)
 
 
-def test_point_sharding_raises():
+def test_pt_shards_average_to_the_rollouts_first_loss():
+    """pt sharding's premise for LEAP: the rollout's loss at the init is the
+    mean of the losses on the n_pt equal parts of the point sets."""
     jc, tc, j_def, n, j_pde = _single_setup()
-    batch = jax_batch(j_pde, n, jax.random.PRNGKey(1), 1, j_def.inner_steps)
-    with pytest.raises(NotImplementedError):
-        leap.multi_task_grad_and_losses(tc["leap_def"]._replace(pt_axis="pt"),
-                                        tc["task_loss"], batch,
-                                        params_from_numpy(_np(jc["init_params"])))
+    batch = jax_batch(j_pde, n, jax.random.PRNGKey(1), 2, j_def.inner_steps)
+    init = params_from_numpy(_np(jc["init_params"]))
+    vloss = torch.func.vmap(tc["task_loss"], in_dims=(None, 0, 0))
+    full = leap.rollout(tc["leap_def"], tc["task_loss"], batch, init)[2][:, 0]
+    parts = [vloss(init, tuple(p[:, 0] for p in shard_task_loss_points(
+        batch.points, Mesh({"dp": 1, "pt": 4}, 0, j, None, None, "gloo"))),
+        batch.task_params)[0] for j in range(4)]
+    np.testing.assert_allclose(torch.stack(parts).mean(0).numpy(), full.numpy(), rtol=1e-5)

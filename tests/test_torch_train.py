@@ -37,6 +37,8 @@ from metapde_tpu.train import maml_driver as j_driver
 from metapde_tpu_torch.config import Config, load_run_config, parse_overrides
 from metapde_tpu_torch.interop import params_from_numpy
 from metapde_tpu_torch.meta import maml
+from metapde_tpu_torch.parallel.mesh import Mesh
+from metapde_tpu_torch.parallel.sharding import shard_task_loss_points
 from metapde_tpu_torch.train import checkpoints, maml_driver, optimizers
 from metapde_tpu_torch.utils.trees import tree_leaves
 
@@ -200,11 +202,21 @@ def test_first_order_losses_equal_the_meta_gradient_run():
     np.testing.assert_allclose(meta0.numpy(), meta.numpy(), rtol=1e-6)
 
 
-def test_point_sharding_raises():
-    (_, _, _), (t_def, t_loss, tp, t_lrs), task_draws = _fixed_point_setup()
-    batch = _batch([task_draws(jax.random.PRNGKey(1))])
-    with pytest.raises(NotImplementedError):
-        maml.multi_task_grad_and_losses(t_def._replace(pt_axis="pt"), t_loss, batch, tp)
+def test_pt_shards_average_to_the_full_loss():
+    """pt sharding's premise (parallel/sharding.py): each task's loss on
+    its full point set is the mean of its losses on n_pt equal parts."""
+    tc = maml_driver.build(parse_overrides(Config(), SMALL), "cpu")
+    batch = tc["draw_all"](torch.Generator().manual_seed(2))
+    vloss = torch.func.vmap(tc["task_loss"], in_dims=(None, 0, 0))
+    full = vloss(tc["init_params"], _set0(batch.outer_points), batch.task_params)[0]
+    parts = [vloss(tc["init_params"], _set0(shard_task_loss_points(
+        batch.outer_points, Mesh({"dp": 1, "pt": 4}, 0, j, None, None, "gloo"))),
+        batch.task_params)[0] for j in range(4)]
+    np.testing.assert_allclose(torch.stack(parts).mean(0).numpy(), full.numpy(), rtol=1e-5)
+
+
+def _set0(points):
+    return tuple(p[:, 0] for p in points)
 
 
 # --- outer steps against the JAX driver --------------------------------------

@@ -148,8 +148,7 @@ def test_cli_trains_on_the_cpu_and_refuses_unported_options(tmp_path):
     base = TINY + [f"--train.out_dir={tmp_path}", "--device=cpu"]
     maml_pde.main(base + ["--train.outer_steps=2", "--train.expt_name=cli"])
     assert all((tmp_path / "cli" / f).exists() for f in FILES)
-    for bad in ("--train.viz_every=10", f"--train.profile_dir={tmp_path}",
-                "--mesh.n_task_shards=2"):
+    for bad in ("--train.viz_every=10", f"--train.profile_dir={tmp_path}"):
         with pytest.raises(NotImplementedError):
             maml_pde.main(base + ["--train.outer_steps=1", "--train.expt_name=bad", bad])
     # every family is ported; an unknown name raises as the JAX registry does
