@@ -43,7 +43,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               4 fresh tasks, FEM ground truth at resolution 16, k = 0, 1, 2, 5
               learned-LR steps, inference through the kernel; checks that the
               kernel launched once per validation call (all tasks in one
-              launch: 4 values of k x (1 warm-up + 3 repeats) = 16), every
+              launch: 4 values of k x (1 warm-up + 2 timed calls) = 12), every
               value is finite, and the k = 5 median relative error beats
               k = 0 and is within 3x of the JAX package's
   5 ground_truth_mg  one task solved at resolution 32 (multigrid
@@ -59,7 +59,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               gt_cache_torch/: the same launch count and the same bars, the
               JAX package's CPU median taken at resolution 32; then the same
               deployment with the bf16 chain (deploy_mg_bf16) from the cached
-              ground truths: no Newton step, 16 launches of the f32 kernel,
+              ground truths: no Newton step, 12 launches of the f32 kernel,
               the same bars, and its k = 0 errors those of the f32 pass
               within 1e-5
   7 train_parity  a tiny meta-training (2 layers of 32, bsize 4, 2 inner
@@ -67,7 +67,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               on the same host draws, TF32 off: params and inner LRs within
               1e-4 of each leaf's scale after every step, meta-losses
               within rtol 1e-3
-  8 train_parity_bf16  three outer steps of bench.py's flagship in bf16
+  8 train_parity_bf16  two outer steps of bench.py's flagship in bf16
               (3x64, bsize 16, 5 inner steps, 1024/1024 points) on the card
               and on the CPU on the same host draws: every leaf within 1e-2
               of its scale, meta-losses within rtol 1e-3
@@ -76,15 +76,23 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               from the JAX package's checkpoint_step_30001.pickle with its
               Adam states, on the card and on the CPU, same draws and bars
  10 train     the training path end to end through cli/maml_pde on a copy
-              of p30k_f32_s1's config.json at its full width, cut to 30
-              outer steps in blocks of 10 (cuts listed in `reduced`), with
-              validation through the kernel every 10 steps against ground
-              truth at the config's own resolution 32, cached in
-              gt_cache_torch/; checks finite losses and val_rel_err, the run
-              directory's files, the final checkpoint's JAX-read keys, dtypes
-              and shapes (as in the JAX checkpoint) and no JAX-only key, and
-              one kernel launch per validation call; then a run() that
-              resumes from it in the same out_dir must solve nothing
+              of p30k_f32_s1's config.json at its full width (its viz_every,
+              0), cut to 30 outer steps in blocks of 10 (cuts listed in
+              `reduced`), with validation through the kernel every 10 steps
+              against ground truth at the config's own resolution 32, cached
+              in gt_cache_torch/; checks finite losses and val_rel_err, the
+              run directory's files, the final checkpoint's JAX-read keys,
+              dtypes and shapes (as in the JAX checkpoint) and no JAX-only
+              key, one kernel launch per validation call, and the tb/
+              TensorBoard mirror (valid CRCs, one record per mirrored scalar
+              per validation, metrics.jsonl's values); then a run() that
+              resumes from it in the same out_dir for 3 steps, one a call,
+              with profile_dir set, must solve nothing and write a
+              torch.profiler trace of loop iteration 1 with CUDA kernels in
+              it; and train/viz.py's panel function at that width on 3
+              tasks at k = 0 and 5 on the 64 x 64 grid, on the card and on
+              the CPU on the same inputs: finite, within 1e-4 of each
+              panel's largest |value|
  11 train_bench  cli/train_bench on bench.py's flagship config, bf16 as
               bench.py runs it, then the f32 variant (3 timed blocks of 2
               outer steps each, one profiled block of 2; cuts in `reduced`),
@@ -101,17 +109,17 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
  14 leap_deploy  cli/deploy_bench --algo=leap on a copy of lp2_4 at its
               full width: 4 fresh tasks, 4096 inner and validation points,
               k = 0, 5, 20, 60, ground truth at resolution 32 (multigrid)
-              through gt_cache_torch/; 16 kernel launches (one per
+              through gt_cache_torch/; 12 kernel launches (one per
               validation call, every task in one batched rollout and one
               launch), finite values, the k = 60 median below k = 0 and
               within 3x of the JAX package's CPU median; then the same with
               --deploy.optimizer=adam at k = 0, 50, 200 from the cached
-              ground truths (leap_deploy_adam): 12 launches, no Newton step,
+              ground truths (leap_deploy_adam): 9 launches, no Newton step,
               the same kind of bars at k = 200
  15 leap_train  cli/leap_pde on a copy of lp2_4's config.json at its full
-              width, cut to 2 outer steps in one block (cuts listed in
-              `reduced`), validation through the kernel at step 2 on 1
-              eval task against ground truth at resolution 32; the checks
+              width, cut to 2 outer steps in one block of 20 of its 60
+              inner steps (cuts listed in `reduced`), validation through
+              the kernel at step 2 on 1 eval task against ground truth at resolution 32; the checks
               of phase train against lp2_4's files; a resumed run() solves
               nothing; then two unprofiled outer steps (steps/s, draw s a
               step, peak memory) and one under torch.profiler (launches,
@@ -122,13 +130,13 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               eager loop bit for bit at resolution 128) and on the CPU:
               u_grids within 1e-5 of the grid's largest |u|; seconds, and one
               solve under torch.profiler (kernels, device busy, idle share);
-              then one FEM task (resolution 64, 11 output times) on both,
+              then one FEM task (resolution 64, 6 output times) on both,
               within 1e-4, with its Newton and Krylov counts
  17 burgers_parity  train_parity on bm7_5's task family (TD-Burgers)
  18 burgers_deploy  cli/deploy_bench --algo=maml on a copy of
               results_burgers_maml/bm7_5 (8x64, best checkpoint, 8 fresh
               tasks, k = 0, 1, 2, 5, FV ground truth at 512 through
-              gt_cache_torch/): 16 launches, the k = 5 median below k = 0 and
+              gt_cache_torch/): 12 launches, the k = 5 median below k = 0 and
               within 3x of the JAX package's CPU median
  19 burgers_train  cli/maml_pde on a copy of bm7_5's config at its full width,
               resumed from its checkpoint_step_500001.pickle with both Adam
@@ -139,7 +147,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               unprofiled steps and one profiled
  20 leap_burgers_deploy  cli/deploy_bench --algo=leap on a copy of
               results_burgers_leap/ldb3_2 (10x128, weights streamed through
-              shared memory): k = 0, 5, 20, 80, 16 launches, the k = 80 median
+              shared memory): k = 0, 5, 20, 80, 12 launches, the k = 80 median
               below k = 0 and within 3x of the JAX package's CPU median
  21 elasticity_gt  two of em7_9's deployment tasks through the sparse-direct
               neo-Hookean solve on the host (float64, scipy's LU, the
@@ -155,13 +163,13 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
  23 elasticity_deploy  cli/deploy_bench --algo=maml on a copy of
               results_elasticity_maml/em7_9 (8x64, two outputs, best
               checkpoint, 8 fresh tasks, k = 0, 1, 2, 5, --energy_audit):
-              16 launches (each validation call evaluates every task and its
+              12 launches (each validation call evaluates every task and its
               mirror in one launch), finite values and audit columns, the
               k = 5 median below k = 0 and within 3x of the JAX package's CPU
               median
  24 leap_elasticity_deploy  cli/deploy_bench --algo=leap on a copy of
               results_elasticity_leap/lde2_3 (10x128, two outputs, weights
-              streamed, 2048 inner points): k = 0, 5, 20, 40, 16 launches,
+              streamed, 2048 inner points): k = 0, 5, 20, 40, 12 launches,
               the k = 40 median below k = 0 and within 3x of the JAX package's
               CPU median
  25 elasticity_train  cli/maml_pde on a copy of em7_9's config at its full
@@ -183,11 +191,12 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               relative
  28 steady_deploy  cli/deploy_bench --algo=maml on a copy of
               results_sburgers_maml/sbi10_2 (5x64, two outputs, best
-              checkpoint, 4 fresh tasks, k = 0, 10, 20, 40, 80, ground truth
-              at resolution 48): 20 launches, the k = 80 median below k = 0
+              checkpoint, 4 fresh tasks, k = 0, 10, 80 (20 and 40 cut),
+              ground truth at resolution 48): 9 launches, the k = 80 median
+              below k = 0
               and within 3x of the JAX package's CPU median; then
               --deploy.optimizer=adam at k = 0, 50 from the cached ground
-              truths (steady_deploy_adam): 8 launches, no Newton step, the
+              truths (steady_deploy_adam): 6 launches, no Newton step, the
               same bars at k = 50
  29 steady_train  cli/maml_pde on a copy of sbi10_2's config at its full
               width (bsize 8, 10 inner steps, remat, 1024 points), resumed
@@ -252,11 +261,33 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               and idle share of rank 0's steps; (b) pipeline/maml_meta_3d.sh's
               config at full width (5x128, 2048 points, 8 eval tasks) through
               the launcher and cli/maml_pde on dp = 2 at bsize 32 (cuts in
-              `reduced`), 4 steps: rank 0 alone writes the run files,
+              `reduced`), 4 steps in two blocks: rank 0 alone writes the run
+              files and validates at steps 1 and 3 while the other rank
+              waits, both train on between them,
               val_rel_err finite and below 1e3, one siren_fused launch (rank
               0's) per validation call; steps/s, each rank's peak memory,
               backend; (c) LEAP at lp2_4's width, one dp = 2 and one pt = 2
               step against the one-process step; no process left behind
+ 38 elasticity_cascade  the matrix-free cascade (solvers/fem_elasticity.py::
+              solve): uniform compression (tests/test_elasticity.py:83-98)
+              and one of em7_9's deployment tasks at resolution 12 on the
+              card and on the CPU, u_grids within 1e-4 of the grid's largest
+              |u|; that task at em7_9's resolution 32 (the chain 16 -> 32)
+              on the card, finite, |u| < 0.5, energy < 1e3, with its
+              distance to solve_direct and its |g|; solve_x64 at 12 on the
+              card with float64 leaves; s a solve, Newton steps, CG
+              iterations, launches of an eager CG iteration, ms of an eager
+              and a graphed one, and one solve under torch.profiler (idle
+              share)
+ 39 pde_check cli/pde_check on the card for the five families (each
+              committed run's task config): a finite ground truth and the
+              JAX CLI's keys, s a family
+ 40 roofline  cli/roofline on bench.py's flagship, f32 and bf16, 3 blocks
+              of 2 steps: steps/s, matmul GFLOP a step (FlopCounterMode),
+              sustained TFLOP/s, 0 < MFU against the H100's bf16 peak < 1
+ 41 tools     cli/solution_viz on a copy of p30k_f32_s1 twice, the second
+              reading its 3 ground truths from gt_cache_torch/; the figure
+              where matplotlib is installed, else its name is None
 Then a JSON line with every kernel's numbers (with the training and LEAP
 paths' launches), one with the training numbers and the total seconds, and
 last the ok line. A failed check raises: the exit code is then not 0. A
@@ -297,7 +328,8 @@ import torch
 from torch.autograd import DeviceType
 
 from metapde_tpu_torch.cli import (deploy_bench, gt_convergence, leap_pde, maml_pde, nn_pde,
-                                   solver_baseline, train_bench)
+                                   pde_check, roofline, solution_viz, solver_baseline,
+                                   train_bench)
 from metapde_tpu_torch.cli.profile_deploy import _busy_us
 from metapde_tpu_torch.config import Config, FieldConfig, load_run_config, parse_overrides
 from metapde_tpu_torch.device import full_f32_matmuls
@@ -308,7 +340,8 @@ from metapde_tpu_torch.pdes import get_pde
 from metapde_tpu_torch.pdes.burgers_formulations import default as burgers_default
 from metapde_tpu_torch.solvers import fem_elasticity, fem_poisson, fv_burgers, multigrid, newton
 from metapde_tpu_torch.train import (checkpoints, leap_driver, loop, maml_driver, nn_driver,
-                                     optimizers)
+                                     optimizers, viz)
+from metapde_tpu_torch.utils import tb_writer
 from metapde_tpu_torch.utils.trees import tree_leaves, tree_map
 
 # the watchdog: well inside the 1200 s a caller may give the whole run
@@ -412,13 +445,23 @@ K5_FACTOR = 3.0
 # different iterates inside the Newton tolerance, and sums run in other orders
 PARITY_RTOL = 1e-2
 DEPLOY_KS = (0, 1, 2, 5)
-DEPLOY_REPEATS = 3
+# timed calls a value of k after its warm-up (deploy_bench --repeats): 2,
+# cut from the CLI's 3 for the smoke's time; time_per_task_s is their mean
+DEPLOY_REPEATS = 2
 # card against CPU on the same training draws (TF32 off on the card)
 TRAIN_LEAF_TOL = 1e-4   # of each leaf's scale, params and inner LRs
 TRAIN_LOSS_RTOL = 1e-3  # meta-losses
 JAX_CKPT = RUN_DIR / "checkpoint_step_30001.pickle"
 TRAIN_CUTS = {"train.outer_steps": 30, "train.steps_per_call": 10, "train.val_every": 10,
               "train.checkpoint_every": 20, "task.n_eval": 2}
+# the resumed pass: 3 steps one a loop iteration, iteration 1 traced
+TRAIN_PROFILED = 3
+# the solution plots' panels (train/viz.py) at p30k_f32_s1's width, card
+# against CPU on the same inputs, of the panel's largest |value|
+PANEL_TASKS = 3
+PANEL_KS = (0, 5)
+PANEL_RES = 16
+PANEL_TOL = 1e-4
 # bench.py's flagship in bf16, card against CPU: the bf16 rounding of the
 # carried tensors flips single ulps where the two sums differ by 1e-7
 BF16_LEAF_TOL = 1e-2
@@ -441,10 +484,11 @@ JAX_CPU_LEAP_K60_MEDIAN = 0.0006325524300336838
 JAX_CPU_LEAP_ADAM_K200_MEDIAN = 0.0006944101769477129
 LEAP_KS = (0, 5, 20, 60)
 LEAP_ADAM_KS = (0, 50, 200)
-# lp2_4's config knobs the port refuses or the bar command sets
-LEAP_OVERRIDES = {"train.viz_every": 0, "model.use_pallas_inference": "true"}
+# what the bar command sets (lp2_4's own viz_every of 10,000 stands: LEAP
+# ignores it, as the JAX LEAP driver does)
+LEAP_OVERRIDES = {"model.use_pallas_inference": "true"}
 LEAP_TRAIN_CUTS = {"train.outer_steps": 2, "train.steps_per_call": 2, "train.val_every": 2,
-                   "train.checkpoint_every": 2, "task.n_eval": 1}
+                   "train.checkpoint_every": 2, "task.n_eval": 1, "leap.inner_steps": 20}
 # TD-Burgers: the committed MAML run (8x64) and LEAP run (10x128)
 BURGERS_RUN = REPO / "results_burgers_maml" / "bm7_5"
 BURGERS_CKPT = BURGERS_RUN / "checkpoint_step_500001.pickle"
@@ -465,7 +509,9 @@ LDB_KS = (0, 5, 20, 80)
 # with no reductions; the FEM stops inside its Newton tolerance
 FV_TOL = 1e-5
 FEM_TOL = 1e-4
-BURGERS_OVERRIDES = {"train.viz_every": 0, "model.use_pallas_inference": "true"}
+# burgers_gt's FEM task: 6 output times (cut from 11), for the smoke's time
+BURGERS_FEM_TSTEPS = 6
+BURGERS_OVERRIDES = {"model.use_pallas_inference": "true"}
 # resumed at bm7_5's step 500001: 10 more outer steps in blocks ending on
 # multiples of 5 (3, 5, 2), validation at 500005 and 500010 on 2 eval tasks
 BURGERS_TRAIN_CUTS = {"train.outer_steps": 500012, "train.steps_per_call": 5,
@@ -488,7 +534,7 @@ JAX_CPU_EM_K5_MEDIAN = 0.0021251493599265814
 #     --inner-steps-list=0,5,20,40
 JAX_CPU_LDE_K40_MEDIAN = 0.0021451401989907026
 LDE_KS = (0, 5, 20, 40)
-EM_OVERRIDES = {"train.viz_every": 0, "model.use_pallas_inference": "true"}
+EM_OVERRIDES = {"model.use_pallas_inference": "true"}
 # resumed at em7_9's step 500001: 6 more outer steps in blocks ending on
 # multiples of 3 (2, 3, 1), validation at 500003 and 500006 on 2 eval tasks
 EM_TRAIN_CUTS = {"train.outer_steps": 500008, "train.steps_per_call": 3,
@@ -502,7 +548,8 @@ P1_TOL = 1e-6
 SB_RUN = REPO / "results_sburgers_maml" / "sbi10_2"
 SB_CKPT = SB_RUN / "checkpoint_step_100001.pickle"
 SB_N_EVAL = 4
-SB_KS = (0, 10, 20, 40, 80)
+# k = 20 and 40 cut from the sweep, for the smoke's time
+SB_KS = (0, 10, 80)
 SB_ADAM_KS = (0, 50)
 # Median val_rel_err from the JAX package's deploy_bench on the CPU, on a
 # copy of sbi10_2 with its own config (FEM ground truth at resolution 48), 4
@@ -519,7 +566,7 @@ JAX_CPU_SB_ADAM_K50_MEDIAN = 0.010178269818425179
 # the metrics (1.83e-5 on one H100, PERF.md), above a bar of 1e-5
 SB_GT_TOL = 1e-4
 SB_PARITY_RTOL = 1e-4
-SB_OVERRIDES = {"train.viz_every": 0, "model.use_pallas_inference": "true"}
+SB_OVERRIDES = {"model.use_pallas_inference": "true"}
 # resumed at sbi10_2's step 100001: 4 more outer steps in blocks of 2,
 # validation at 100003 and 100005 on 2 eval tasks (resolution 48)
 SB_TRAIN_CUTS = {"train.outer_steps": 100006, "train.steps_per_call": 2,
@@ -534,7 +581,7 @@ P3D_FLAGS = ["--task.pde=poisson3d", "--model.num_layers=5", "--model.layer_size
              "--task.inner_points=2048", "--task.outer_points=2048",
              "--task.validation_points=2048", "--task.n_eval=8", "--train.optimizer=adam"]
 P3D_TRAIN_CUTS = {"train.outer_steps": 4, "train.steps_per_call": 2, "train.val_every": 2,
-                  "train.log_every": 2, "train.checkpoint_every": 4, "train.viz_every": 0,
+                  "train.log_every": 2, "train.checkpoint_every": 4,
                   "model.use_pallas_inference": "true"}
 P3D_TRAIN_BAR = 1e3  # tests/test_poisson3d.py:123-145
 # pipeline/deployment_poisson.sh: its first command (nn_pde_maml from the
@@ -910,6 +957,7 @@ def _deploy_checked(tmp, name, deploy, ks, jax_median, n_eval=8, **numbers):
     if not med[top] <= K5_FACTOR * jax_median:
         raise AssertionError(f"{name}: k={top} median rel err {med[top]} above {K5_FACTOR} x "
                              f"the JAX CPU median {jax_median}")
+    numbers.setdefault("reduced", {})["deploy_bench --repeats"] = f"3 -> {DEPLOY_REPEATS}"
     emit(name, t0, launches=launches, median_rel_err=med, jax_cpu_median={top: jax_median},
          time_per_task_s={r["inner_steps"]: r["time_per_task_s"] for r in rows},
          self_loss_median={r["inner_steps"]: r["self_loss_median"] for r in rows}, **numbers)
@@ -978,12 +1026,14 @@ def _solve_counted(solve, task, device):
 def phase_ground_truth_mg():
     """The first GT_MG_TASKS eval tasks (host draws, deploy_bench's seed)
     solved at resolution 32 with the multigrid preconditioner on the card
-    and on the CPU."""
+    and on the CPU, one after the other, then the card side's V-cycle,
+    BiCGStab and profiled solve on a quiet host."""
     t0 = time.perf_counter()
     pde = get_pde(Config().task)
     gen = torch.Generator().manual_seed(Config().seed + 7919)
     tasks = [pde.sample_params(gen) for _ in range(GT_MG_TASKS)]
     rows = []
+
     def solve(task):
         return fem_poisson.solve(task, resolution=MG_RES)
 
@@ -995,11 +1045,21 @@ def phase_ground_truth_mg():
         rows.append({"card_s": g_s, "cpu_s": c_s, "newton_steps": g_steps,
                      "krylov_iters": g_iters, "krylov_per_newton": g_iters / max(g_steps, 1),
                      "cpu_newton_steps": c_steps, "cpu_krylov_iters": c_iters,
+                     "cpu_threads": torch.get_num_threads(),
                      "residual_norm": float(g.residual_norm),
                      "cpu_residual_norm": float(c.residual_norm), "rel_err": err})
         if not (bool(torch.isfinite(g.u_grid).all()) and err <= MG_TOL):
             raise AssertionError(f"resolution-{MG_RES} u_grid: card vs CPU {err} of the "
-                                 f"grid's max (> {MG_TOL}), or not finite")
+                                 f"grid's max (> {MG_TOL}), or not finite: {rows[-1]}")
+    card_side = _ground_truth_mg_card(tasks)
+    emit("ground_truth_mg", t0, resolution=MG_RES, tol=MG_TOL, tasks=rows, **card_side)
+    return {"s_per_task": statistics.mean(r["card_s"] for r in rows),
+            "vcycle_launches": card_side["vcycle_launches"]}
+
+
+def _ground_truth_mg_card(tasks):
+    """ground_truth_mg's card side beyond the solves: one V-cycle (launches,
+    time), BiCGStab graphed and eager, one profiled solve."""
     # one V-cycle: its kernel launches and its time
     geo = tasks[0][2].to("cuda")
     M = multigrid.make_polar_mg_preconditioner(geo, MG_RES, pre_sweeps=3, post_sweeps=3)
@@ -1026,15 +1086,14 @@ def phase_ground_truth_mg():
     solve_prof = _profile(lambda: fem_poisson.solve(tuple(a.to("cuda") for a in tasks[-1]),
                                                     resolution=MG_RES))
     solve_prof["krylov_iters"] = newton.bicgstab.iterations
-    emit("ground_truth_mg", t0, resolution=MG_RES, tol=MG_TOL, tasks=rows,
-         vcycle_ms=vcycle_ms, vcycle_launches=vcycle_prof["launches"],
-         vcycle_device_ms=vcycle_prof["device_busy_ms"], vcycle_wall_ms=vcycle_prof["wall_ms"],
-         bicgstab_graph={"iterations": krylov[True][2], "graph_s": krylov[True][1],
-                         "eager_s": krylov[False][1], "rel_diff": graph_diff,
-                         "bit_equal": bool(torch.equal(krylov[True][0], krylov[False][0]))},
-         solve_profiled=solve_prof)
-    return {"s_per_task": statistics.mean(r["card_s"] for r in rows),
-            "vcycle_launches": vcycle_prof["launches"]}
+    return dict(vcycle_ms=vcycle_ms, vcycle_launches=vcycle_prof["launches"],
+                vcycle_device_ms=vcycle_prof["device_busy_ms"],
+                vcycle_wall_ms=vcycle_prof["wall_ms"],
+                bicgstab_graph={"iterations": krylov[True][2], "graph_s": krylov[True][1],
+                                "eager_s": krylov[False][1], "rel_diff": graph_diff,
+                                "bit_equal": bool(torch.equal(krylov[True][0],
+                                                              krylov[False][0]))},
+                solve_profiled=solve_prof)
 
 
 def _profile(fn):
@@ -1121,15 +1180,17 @@ def phase_train_parity():
 
 
 def phase_train_parity_bf16():
-    """Three outer steps of bench.py's flagship, bf16 as bench.py runs it."""
+    """Two outer steps of bench.py's flagship, bf16 as bench.py runs it
+    (cut from 3)."""
     t0 = time.perf_counter()
     cfg = train_bench.FLAGSHIP
     c = maml_driver.build(cfg, "cpu")
     state = (c["init_params"], c["inner_lrs"], c["outer_opt"].init(c["init_params"]),
              c["lr_opt"].init(c["inner_lrs"]))
-    rows, t_card, t_cpu = _train_both(cfg, 3, state, leaf_tol=BF16_LEAF_TOL)
+    rows, t_card, t_cpu = _train_both(cfg, 2, state, leaf_tol=BF16_LEAF_TOL)
     emit("train_parity_bf16", t0, leaf_tol=BF16_LEAF_TOL, loss_rtol=TRAIN_LOSS_RTOL,
-         compute_dtype=cfg.model.compute_dtype, steps=rows, card_s=t_card, cpu_s=t_cpu)
+         compute_dtype=cfg.model.compute_dtype, steps=rows, card_s=t_card, cpu_s=t_cpu,
+         reduced={"outer steps": "3 -> 2"})
 
 
 def phase_train_resume_jax():
@@ -1172,6 +1233,71 @@ def _gt_log(run):
     return int(words[0]), int(words[2])
 
 
+def _check_tb_mirror(run, recs):
+    """tb/'s event file parses with valid CRCs and holds one record per
+    mirrored scalar per validation (numeric, not NaN, by the JAX rule) with
+    metrics.jsonl's values in float32."""
+    (events,) = (run / "tb").glob("events.out.tfevents.*")
+    got = tb_writer.read_scalars(events)
+    want = [(r["step"], k, v) for r in recs for k, v in r.items()
+            if k not in ("step", "time") and isinstance(v, (int, float)) and v == v]
+    if [(s, t) for s, t, _ in got] != [(s, t) for s, t, _ in want] or any(
+            g != float(torch.tensor(float(w), dtype=torch.float32))
+            for (_, _, g), (_, _, w) in zip(got, want)):
+        raise AssertionError(f"tb/ holds {got}, metrics.jsonl {want}")
+    return {"records": len(got), "tags": sorted({t for _, t, _ in got}),
+            "bytes": events.stat().st_size}
+
+
+def _check_trace(fname, log):
+    """The profile_dir trace: written, one loop iteration traced (the
+    span loop_iteration_1), CUDA kernels in it."""
+    events = json.loads(fname.read_text())["traceEvents"]
+    spans = sorted({e["name"] for e in events if e.get("name", "").startswith("loop_iteration_")})
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if spans != ["loop_iteration_1"] or kernels == 0 or "wrote profiler trace" not in \
+            log.read_text():
+        raise AssertionError(f"trace spans {spans}, {kernels} kernel events")
+    return {"spans": spans, "kernel_events": kernels, "bytes": fname.stat().st_size}
+
+
+def _check_panels():
+    """train/viz.py's panel function at p30k_f32_s1's width on its best
+    checkpoint: PANEL_TASKS tasks (ground truth at PANEL_RES on the card,
+    the same values on the CPU) at k = 0 and 5 on the 64 x 64 grid, on the
+    card and on the CPU on the same inputs: finite, and within PANEL_TOL of
+    the panel's largest |value|."""
+    cfg = parse_overrides(load_run_config(str(RUN_DIR)), [])
+    state = checkpoints.load_checkpoint(str(RUN_DIR / "checkpoint_best.pickle"))
+    gen = torch.Generator().manual_seed(cfg.seed + 7919)
+    pde = get_pde(cfg.task)
+    tasks = [pde.sample_params(gen) for _ in range(PANEL_TASKS)]
+    gts = [pde.solve(tuple(a.to("cuda") for a in t), resolution=PANEL_RES) for t in tasks]
+    dom = cfg.task.domain
+    out, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        c = maml_driver.build(cfg, device)
+        model = (params_from_numpy(state["params"], device),
+                 params_from_numpy(state["inner_lrs"], device))
+        adapt = lambda i, p, k: c["get_final_model"](torch.Generator().manual_seed(0), model, p, k)
+        (_, _, truth, values), secs[device] = _timed(lambda: viz.solution_panels(
+            c["pde"], [type(g)(*(a.to(device) for a in g)) for g in gts],
+            [tuple(a.to(device) for a in t) for t in tasks], adapt, c["field"].apply,
+            inner_steps_list=PANEL_KS, n_tasks=PANEL_TASKS,
+            bounds=(dom.xmin, dom.xmax, dom.ymin, dom.ymax)), device)
+        out[device] = {"truth": truth.cpu(), **{k: v.cpu() for k, v in values.items()}}
+    errs = {}
+    for name, cpu in out["cpu"].items():
+        card = out["cuda"][name]
+        errs[str(name)] = float((card - cpu).abs().max() / cpu.abs().max())
+        if not (bool(torch.isfinite(card).all()) and errs[str(name)] <= PANEL_TOL):
+            raise AssertionError(f"panel {name}: card vs CPU {errs[str(name)]} of its max "
+                                 f"(> {PANEL_TOL}), or not finite")
+    return {"tasks": PANEL_TASKS, "ks": list(PANEL_KS), "grid": [64, 64],
+            "ground_truth_resolution": PANEL_RES, "tol": PANEL_TOL, "card_vs_cpu": errs,
+            "card_s": secs["cuda"], "cpu_s": secs["cpu"]}
+
+
 def phase_train():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1210,13 +1336,21 @@ def phase_train():
         config = json.loads((run / "config.json").read_text())
         resolution = config["solver"]["ground_truth_resolution"]
         first = _gt_log(run)
-        # a run() that resumes from it in the same out_dir: one more step,
-        # every ground truth from gt_cache_torch/
+        tb = _check_tb_mirror(run, recs)
+        # a run() that resumes from it in the same out_dir, TRAIN_PROFILED
+        # more steps one a call, the second traced (profile_dir): every
+        # ground truth from gt_cache_torch/
         t1 = time.perf_counter()
-        maml_pde.main(args + ["--train.expt_name=resumed", f"--train.load_model_from_expt={run}",
-                              f"--train.outer_steps={TRAIN_CUTS['train.outer_steps'] + 1}"])
+        prof_dir = Path(tmp) / "prof"
+        maml_pde.main(args + [
+            "--train.expt_name=resumed", f"--train.load_model_from_expt={run}",
+            f"--train.outer_steps={TRAIN_CUTS['train.outer_steps'] + TRAIN_PROFILED}",
+            "--train.steps_per_call=1", f"--train.profile_dir={prof_dir}",
+            "--train.profile_steps=1"])
         resumed_s = time.perf_counter() - t1
         resumed = _gt_log(out / "resumed")
+        trace = _check_trace(prof_dir / "trace.json", out / "resumed" / "log.txt")
+    panels = _check_panels()
     n_eval = TRAIN_CUTS["task.n_eval"]
     if resolution != 32 or first != (n_eval, 0) or resumed != (0, n_eval):
         raise AssertionError(f"ground truth at resolution {resolution}: (solved, read) "
@@ -1230,7 +1364,8 @@ def phase_train():
          val_rel_err_median=[r["val_rel_err_median"] for r in recs],
          deployment_time=[r["deployment_time"] for r in recs],
          step_time=[r["step_time"] for r in recs], steps_per_s=1.0 / step_s,
-         best_step=best["step"], checkpoint_keys=ckpt_keys)
+         best_step=best["step"], checkpoint_keys=ckpt_keys, tb=tb, trace=trace,
+         panels=panels)
     return {"launches": launches, "steps_per_s": 1.0 / step_s,
             "deployment_time": recs[-1]["deployment_time"],
             "val_rel_err": recs[-1]["val_rel_err"], "gt_solved_read": first,
@@ -1239,7 +1374,7 @@ def phase_train():
 
 # 3 timed blocks of 2 outer steps and one profiled block of 2, so that the
 # whole run, TD-Burgers phases included, stays under 700 s
-BENCH_CUTS = {"block": 2, "blocks": 3}
+BENCH_CUTS = {"block": 2, "blocks": 2}
 BENCH_KEYS = ("outer_steps_per_s", "residual_pt_evals_per_s", "draw_s_per_step",
               "device_busy_ms_per_step", "device_idle_share", "kernels_per_step",
               "max_memory_allocated_bytes", "bf16_gemm", "nvidia_smi", "config")
@@ -1437,7 +1572,8 @@ def phase_leap_train():
     if resolution != 32 or first != (n_eval, 0) or resumed != (0, n_eval):
         raise AssertionError(f"ground truth at resolution {resolution}: (solved, read) "
                              f"{first} then {resumed} on resume")
-    cfg = parse_overrides(load_run_config(str(LEAP_RUN)), ["--train.viz_every=0"])
+    cfg = parse_overrides(load_run_config(str(LEAP_RUN)),
+                          [f"--leap.inner_steps={LEAP_TRAIN_CUTS['leap.inner_steps']}"])
     bench = _step_numbers(cfg, leap_driver.build(cfg, "cuda"),
                           (params_from_numpy(final["params"], "cuda"),
                            params_from_numpy(final["torch_opt_state"], "cuda", dtype=None)),
@@ -1500,7 +1636,8 @@ def phase_burgers_gt():
     steps, per_seg = fv_burgers.n_substeps(res, dom.xmax - dom.xmin, dom.tmax,
                                            cfg.task.max_reynolds, 0.4, 5.0, cfg.task.num_tsteps)
     prof = _profile(lambda: solve("cuda"))
-    fem_cfg = parse_overrides(cfg, ["--task.burgers_gt_solver=fem", "--task.num_tsteps=11"])
+    fem_cfg = parse_overrides(cfg, ["--task.burgers_gt_solver=fem",
+                                    f"--task.num_tsteps={BURGERS_FEM_TSTEPS}"])
     fem_pde = get_pde(fem_cfg.task)
     fem = {device: _solve_counted(lambda t: fem_pde.solve(t, resolution=64), tasks[0], device)
            for device in ("cuda", "cpu")}
@@ -1517,7 +1654,8 @@ def phase_burgers_gt():
            "graph_replays": cfg.task.num_tsteps - 1,
            "device_busy_ms": prof["device_busy_ms"], "wall_ms": prof["wall_ms"],
            "idle_share": prof["idle_share"], "reynolds": float(tasks[0][0][0]),
-           "fem": {"resolution": 64, "num_tsteps": 11, "tol": FEM_TOL, "rel_err": fem_err,
+           "fem": {"resolution": 64, "num_tsteps": BURGERS_FEM_TSTEPS, "tol": FEM_TOL,
+                   "reduced": {"num_tsteps": f"11 -> {BURGERS_FEM_TSTEPS}"}, "rel_err": fem_err,
                    "card_s": fem["cuda"][1], "cpu_s": fem["cpu"][1],
                    "newton_steps": fem["cuda"][2], "krylov_iters": fem["cuda"][3],
                    "cpu_newton_steps": fem["cpu"][2], "cpu_krylov_iters": fem["cpu"][3]}}
@@ -1640,7 +1778,7 @@ def phase_burgers_train():
     n_eval = BURGERS_TRAIN_CUTS["task.n_eval"]
     if first != (n_eval, 0) or resumed != (0, n_eval):
         raise AssertionError(f"ground truth (solved, read) {first} then {resumed} on resume")
-    cfg = parse_overrides(load_run_config(str(BURGERS_RUN)), ["--train.viz_every=0"])
+    cfg = load_run_config(str(BURGERS_RUN))
     state = (params_from_numpy(final["params"], "cuda"),
              params_from_numpy(final["inner_lrs"], "cuda"),
              *(params_from_numpy(final[f"torch_{k}"], "cuda", dtype=None)
@@ -1803,7 +1941,7 @@ def phase_elasticity_train():
         ckpt_keys = _check_final_checkpoint(run / f"checkpoint_step_{last}.pickle", EM_CKPT)
         gt_solved = _gt_log(run)
         final = checkpoints.load_checkpoint(str(run / f"checkpoint_step_{last}.pickle"))
-    cfg = parse_overrides(load_run_config(str(EM_RUN)), ["--train.viz_every=0"])
+    cfg = load_run_config(str(EM_RUN))
     state = (params_from_numpy(final["params"], "cuda"),
              params_from_numpy(final["inner_lrs"], "cuda"),
              *(params_from_numpy(final[f"torch_{k}"], "cuda", dtype=None)
@@ -1966,7 +2104,7 @@ def phase_steady_train():
         ckpt_keys = _check_final_checkpoint(run / f"checkpoint_step_{last}.pickle", SB_CKPT)
         gt_solved = _gt_log(run)
         final = checkpoints.load_checkpoint(str(run / f"checkpoint_step_{last}.pickle"))
-    cfg = parse_overrides(load_run_config(str(SB_RUN)), ["--train.viz_every=0"])
+    cfg = load_run_config(str(SB_RUN))
     state = (params_from_numpy(final["params"], "cuda"),
              params_from_numpy(final["inner_lrs"], "cuda"),
              *(params_from_numpy(final[f"torch_{k}"], "cuda", dtype=None)
@@ -2039,7 +2177,7 @@ def phase_poisson3d_train():
                                  f"{launches} times for {len(recs)} validation calls")
         gt_solved = _gt_log(run)
         final = checkpoints.load_checkpoint(str(run / f"checkpoint_step_{last}.pickle"))
-    cfg = parse_overrides(Config(), P3D_FLAGS + ["--train.viz_every=0"])
+    cfg = parse_overrides(Config(), P3D_FLAGS)
     state = (params_from_numpy(final["params"], "cuda"),
              params_from_numpy(final["inner_lrs"], "cuda"),
              *(params_from_numpy(final[f"torch_{k}"], "cuda", dtype=None)
@@ -2471,7 +2609,7 @@ def phase_mesh_train():
         last = P3D_TRAIN_CUTS["train.outer_steps"]
         names = {p.name for p in run.iterdir()}
         want = {"log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
-                f"checkpoint_step_{last}.pickle"}
+                f"checkpoint_step_{last}.pickle", "tb"}
         if not want <= names or any(not n.startswith("checkpoint_step_")
                                     for n in names - want):
             raise AssertionError(f"the sharded run dir holds {sorted(names)}; want "
@@ -2528,6 +2666,190 @@ def phase_mesh_train():
             "flagship_f32": parts["flagship_f32"]["rows"], "seconds": seconds}
 
 
+# The matrix-free elasticity cascade (solvers/fem_elasticity.py::solve):
+# tests/test_elasticity.py:83-98's uniform compression and one of em7_9's
+# deployment tasks at resolution 12 on the card and on the CPU, of the grid's
+# largest |u|; that task at em7_9's resolution 32 (the chain 16 -> 32) on the
+# card with tests/test_elasticity.py::test_solver_with_pores_converges's bars
+CASCADE_UNIFORM = {"resolution": 12, "load_steps": 2, "newton_steps": 15}
+CASCADE_RES = 12
+CASCADE_TOL = 1e-4
+CASCADE_FULL_RES = 32
+CASCADE_CG_PROFILED = 50  # eager CG iterations profiled for their launches
+CASCADE_CG_TIMED = 200    # at most, a timed CG solve, eager and graphed
+
+
+def _cascade_counted(fn, device):
+    """fn() between two barriers of `device`: (ground truth, seconds, Newton
+    steps, CG iterations)."""
+    newton.cg.iterations, fem_elasticity.solve.newton_steps = 0, 0
+    gt, secs = _timed(fn, device)
+    return gt, secs, fem_elasticity.solve.newton_steps, newton.cg.iterations
+
+
+def phase_elasticity_cascade():
+    t0 = time.perf_counter()
+    cfg, _, (task,) = _eval_tasks(EM_RUN, 1)
+    dom = cfg.task.domain
+    bounds = {"xmin": dom.xmin, "xmax": dom.xmax, "ymin": dom.ymin, "ymax": dom.ymax}
+    uniform = (torch.zeros(2), torch.tensor([1.0, 1.0]), torch.zeros(1, 5),
+               torch.tensor(0, dtype=torch.int32))
+    on = lambda params, device: tuple(a.to(device) for a in params)
+    rows, card_gts = {}, {}
+    for name, params, kw in (("uniform", uniform, CASCADE_UNIFORM),
+                             ("pored", task, {"resolution": CASCADE_RES, **bounds})):
+        g, g_s, g_newton, g_cg = _cascade_counted(
+            lambda: fem_elasticity.solve(on(params, "cuda"), **kw), "cuda")
+        c, c_s, _, c_cg = _cascade_counted(
+            lambda: fem_elasticity.solve(on(params, "cpu"), **kw), "cpu")
+        scale = float(c.u_grid.abs().max())
+        err = float((g.u_grid.cpu() - c.u_grid).abs().max()) / scale
+        card_gts[name] = g
+        rows[name] = {"resolution": kw["resolution"], "card_s": g_s, "cpu_s": c_s,
+                      "newton_steps": g_newton, "cg_iters": g_cg, "cpu_cg_iters": c_cg,
+                      "final_gnorm": float(g.final_gnorm),
+                      "cpu_final_gnorm": float(c.final_gnorm), "rel_err": err}
+        if not (bool(torch.isfinite(g.u_grid).all()) and err <= CASCADE_TOL):
+            raise AssertionError(f"cascade {name}: card vs CPU {err} of the grid's max "
+                                 f"(> {CASCADE_TOL}), or not finite")
+    # em7_9's resolution, the chain 16 -> 32, against the family's oracle
+    full, full_s, full_newton, full_cg = _cascade_counted(
+        lambda: fem_elasticity.solve(on(task, "cuda"), resolution=CASCADE_FULL_RES, **bounds),
+        "cuda")
+    u = full.u_grid.cpu()
+    direct = fem_elasticity.solve_direct(task, resolution=CASCADE_FULL_RES, **bounds)
+    to_direct = float((u - direct.u_grid).abs().max() / direct.u_grid.abs().max())
+    if not (bool(torch.isfinite(u).all()) and float(u.abs().max()) < 0.5
+            and float(full.final_energy) < 1e3):
+        raise AssertionError(f"cascade at {CASCADE_FULL_RES}: max |u| {float(u.abs().max())}, "
+                             f"energy {float(full.final_energy)}")
+    # float64 at 12 on the card
+    g64, g64_s, g64_newton, g64_cg = _cascade_counted(
+        lambda: fem_elasticity.solve_x64(on(task, "cuda"), resolution=CASCADE_RES, **bounds),
+        "cuda")
+    if g64.u_grid.dtype != torch.float64 or not bool(torch.isfinite(g64.u_grid).all()):
+        raise AssertionError(f"solve_x64: {g64.u_grid.dtype}, finite "
+                             f"{bool(torch.isfinite(g64.u_grid).all())}")
+    # launches a CG iteration (eager, on the pored task's first Hessian),
+    # and one graphed solve under the profiler
+    prob = fem_elasticity._torch_problem(on(task, "cuda"), CASCADE_RES, **bounds)
+    grad, hvp = prob["grad_hess"](torch.zeros(2 * prob["n_nodes"], device="cuda"),
+                                  -0.12 / 4)
+    newton.cg.iterations = 0
+    cg_prof = _profile(lambda: newton.cg(hvp, -grad, tol=0.0, maxiter=CASCADE_CG_PROFILED,
+                                         cuda_graph=False))
+    cg_iters = newton.cg.iterations
+    cg_ms = {}
+    for graphed in (False, True):
+        run_cg = lambda: newton.cg(hvp, -grad, tol=0.0, maxiter=CASCADE_CG_TIMED,
+                                   cuda_graph=graphed)
+        newton.cg.iterations = 0
+        run_cg()
+        iterations = newton.cg.iterations
+        cg_ms[graphed] = cuda_ms(run_cg, reps=3, warmup=1) / max(iterations, 1)
+    newton.cg.iterations = 0
+    solve_prof = _profile(lambda: fem_elasticity.solve(on(uniform, "cuda"), **CASCADE_UNIFORM))
+    solve_prof["cg_iters"] = newton.cg.iterations
+    emit("elasticity_cascade", t0, tol=CASCADE_TOL, cases=rows,
+         full={"resolution": CASCADE_FULL_RES, "card_s": full_s, "newton_steps": full_newton,
+               "cg_iters": full_cg, "final_gnorm": float(full.final_gnorm),
+               "final_energy": float(full.final_energy), "max_abs_u": float(u.abs().max()),
+               "rel_to_solve_direct": to_direct,
+               "solve_direct_gnorm": float(direct.final_gnorm)},
+         x64={"resolution": CASCADE_RES, "card_s": g64_s, "newton_steps": g64_newton,
+              "cg_iters": g64_cg, "final_gnorm": float(g64.final_gnorm),
+              "rel_to_f32": float((g64.u_grid.cpu() - card_gts["pored"].u_grid.cpu().double())
+                                  .abs().max() / g64.u_grid.abs().max())},
+         cg={"launches_per_iteration_eager": cg_prof["launches"] / max(cg_iters, 1),
+             "ms_per_iteration_eager": cg_ms[False],
+             "ms_per_iteration_graphed": cg_ms[True]},
+         solve_profiled=solve_prof)
+    return {"s_per_solve": {k: r["card_s"] for k, r in rows.items()},
+            "full_s": full_s, "cg_iters_full": full_cg,
+            "launches_per_cg_iteration_eager": cg_prof["launches"] / max(cg_iters, 1),
+            "idle_share": solve_prof["idle_share"]}
+
+
+# pde_check on each family, with each committed run's task config
+PDE_CHECK_FAMILIES = (("poisson", RUN_DIR), ("td_burgers", BURGERS_RUN),
+                      ("hyper_elasticity", EM_RUN), ("steady_burgers", SB_RUN),
+                      ("poisson3d", None))
+
+
+def phase_pde_check():
+    """cli/pde_check on the card for the five families: the JSON keys, a
+    finite ground truth, seconds a family."""
+    t0 = time.perf_counter()
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for family, run in PDE_CHECK_FAMILIES:
+            cfg = (load_run_config(str(run)) if run is not None
+                   else parse_overrides(Config(), P3D_FLAGS))
+            stats, secs = _timed(lambda: pde_check.run(cfg, out=f"{tmp}/{family}",
+                                                       device="cuda"), "cuda")
+            if stats["pde"] != family or stats["gt_finite"] is not True or not (
+                    {"n_point_sets", "gt_norm"} <= set(stats)):
+                raise AssertionError(f"pde_check {family}: {stats}")
+            rows[family] = {"s": secs, **{k: stats[k] for k in ("n_point_sets", "gt_norm",
+                                                               "gt_finite")},
+                            "pngs": sorted(k for k in stats if k.endswith("_png"))}
+    emit("pde_check", t0, families=rows)
+    return {k: r["s"] for k, r in rows.items()}
+
+
+# cli/roofline on bench.py:266-295's flagship (3x64, bsize 16, 5 inner
+# steps, 1024 points, the with-replacement sampler, remat off), f32 and the
+# bf16 chain, 3 timed blocks of 2 steps
+ROOFLINE_FLAGS = ["--fast_sampler", "--no_remat", "--block=2", "--blocks=3"]
+ROOFLINE_KEYS = ("steps_per_sec", "ms_per_step", "matmul_gflops_per_step", "sustained_tflops",
+                 "mfu_vs_bf16_peak", "ridge_flops_per_byte", "nvidia_smi")
+
+
+def phase_roofline():
+    t0 = time.perf_counter()
+    rows = {"f32": roofline.main(ROOFLINE_FLAGS),
+            "bf16": roofline.main(ROOFLINE_FLAGS + ["--compute_dtype=bfloat16"])}
+    for name, r in rows.items():
+        if not (r["steps_per_sec"] > 0 and r["matmul_gflops_per_step"] > 0
+                and r["sustained_tflops"] > 0 and 0 < r.get("mfu_vs_bf16_peak", 0) < 1):
+            raise AssertionError(f"roofline {name}: {r}")
+    emit("roofline", t0, reduced={"block": 2, "blocks": 3},
+         runs={k: {b: r.get(b) for b in ROOFLINE_KEYS} for k, r in rows.items()})
+    return {k: {b: r.get(b) for b in ROOFLINE_KEYS} for k, r in rows.items()}
+
+
+def phase_tools():
+    """cli/solution_viz on a copy of p30k_f32_s1 end to end, twice: the
+    second reads its 3 ground truths from gt_cache_torch/. The figure is
+    written where matplotlib is installed, else its name is None."""
+    t0 = time.perf_counter()
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    lines, secs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        src = _run_copy(tmp, RUN_DIR, ("config.json", "checkpoint_step_30001.pickle"))
+        out = Path(tmp) / "fig" / "solutions.png"
+        for _ in range(2):
+            buf = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                fname = solution_viz.main([f"--from_run={src}", "--inner-steps-list=0,2,5",
+                                           f"--out={out}"])
+            secs.append(time.perf_counter() - t1)
+            lines.append(next(l for l in buf.getvalue().splitlines()
+                              if l.startswith("ground truth")))
+            if (fname is None) == have_mpl or (have_mpl and not out.exists()):
+                raise AssertionError(f"solution_viz returned {fname}, matplotlib {have_mpl}")
+    if "0 solved, 3 read" not in lines[1]:
+        raise AssertionError(f"the second solution_viz: {lines[1]}")
+    emit("tools", t0, solution_viz={"s": secs, "ground_truth": lines, "matplotlib": have_mpl,
+                                    "figure": fname is not None})
+    return {"solution_viz_s": secs}
+
+
 PHASES = {
     "kernel": phase_kernel, "parity": phase_parity, "deploy": phase_deploy,
     "ground_truth_mg": phase_ground_truth_mg, "deploy_mg": phase_deploy_mg,
@@ -2547,7 +2869,8 @@ PHASES = {
     "poisson3d_train": phase_poisson3d_train, "nn_parity": phase_nn_parity,
     "nn_deploy_maml": phase_nn_deploy_maml, "nn_deploy_leap": phase_nn_deploy_leap,
     "nn_multistart": phase_nn_multistart, "solver_baseline": phase_solver_baseline,
-    "mesh_train": phase_mesh_train,
+    "mesh_train": phase_mesh_train, "elasticity_cascade": phase_elasticity_cascade,
+    "pde_check": phase_pde_check, "roofline": phase_roofline, "tools": phase_tools,
 }
 
 
@@ -2594,6 +2917,10 @@ def main(argv):
     nn_ms = phase_nn_multistart()
     phase_solver_baseline()
     mesh = phase_mesh_train()
+    cascade = phase_elasticity_cascade()
+    pde_checks = phase_pde_check()
+    roof = phase_roofline()
+    tools = phase_tools()
     main_row, big = kern["main_path_batched"], kern["main_path_2pow20"]
     timing_keys = ("ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
                    "bound_f32_ms")
@@ -2670,7 +2997,8 @@ def main(argv):
                                    "nn_deploy_maml": nn_maml["step"],
                                    "nn_deploy_leap": nn_leap["step"],
                                    "mesh_train": mesh},
-                      "ground_truth_mg": gt_mg,
+                      "ground_truth_mg": gt_mg, "elasticity_cascade": cascade,
+                      "pde_check": pde_checks, "roofline": roof, "tools": tools,
                       "total_s": time.perf_counter() - T_START}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

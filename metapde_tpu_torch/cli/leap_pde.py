@@ -3,7 +3,7 @@
     python -m metapde_tpu_torch.cli.leap_pde --task.pde=poisson \
         --leap.bsize=8 --leap.inner_steps=60 --leap.inner_lr=2.5e-5 \
         --leap.outer_lr=5e-5 --task.inner_points=4096 \
-        --train.viz_every=0 --train.expt_name=default
+        --train.expt_name=default
 
 The JAX CLI's flags (dotted config paths, config.parse_overrides, including
 --from_run=DIR) plus --device=NAME: CUDA unless given --device=cpu.

@@ -3,7 +3,7 @@
     python -m metapde_tpu_torch.cli.maml_pde --task.pde=poisson \
         --maml.bsize=16 --maml.inner_steps=5 --maml.inner_lr=1e-4 \
         --maml.outer_lr=1e-5 --task.inner_points=1024 --task.outer_points=1024 \
-        --train.viz_every=0 --train.expt_name=default
+        --train.expt_name=default
 
 The JAX CLI's flags (dotted config paths, config.parse_overrides, including
 --from_run=DIR) plus --device=NAME: CUDA unless given --device=cpu.
@@ -13,7 +13,7 @@ against the FV ground truth and writes the per-timestep error to
 metrics.jsonl:
 
     python -m metapde_tpu_torch.cli.maml_pde --from_run=results_burgers_maml/bm7_5 \
-        --train.outer_steps=500011 --train.viz_every=0 --train.expt_name=more
+        --train.outer_steps=500011 --train.expt_name=more
 
 and a poisson3d run validates against the exact manufactured solution.
 
@@ -25,7 +25,7 @@ on two cards:
 
     python -m torch.distributed.run --standalone --nproc_per_node=2 \
         -m metapde_tpu_torch.cli.maml_pde --task.pde=poisson3d \
-        --mesh.n_task_shards=2 --maml.bsize=32 --train.viz_every=0 ...
+        --mesh.n_task_shards=2 --maml.bsize=32 ...
 
 The world size must equal n_task_shards * n_point_shards; under the
 launcher --device=cpu runs gloo ranks on the CPU.

@@ -233,8 +233,9 @@ class TrainConfig:
     # lost to per-step dispatch+sync latency at this model size. 1 = the
     # reference's step-at-a-time loop.
     steps_per_call: int = 1
-    # write a jax.profiler trace of training iterations here (the
-    # reference has wall-clock Timers only, SURVEY.md section 5)
+    # write a profiler trace of training iterations here (the port:
+    # torch.profiler's Chrome trace of MAML loop iterations, train/loop.py;
+    # the reference has wall-clock Timers only, SURVEY.md section 5)
     profile_dir: Optional[str] = None
     profile_steps: int = 3  # loop iterations to capture in the trace
     # metric that drives checkpoint_best tracking: "rel_err" (the

@@ -1,1 +1,1 @@
-from .fourier import fourier_feature_dim, fourier_features  # noqa: F401
+from .fourier import dewhiten, fourier_feature_dim, fourier_features, whiten  # noqa: F401

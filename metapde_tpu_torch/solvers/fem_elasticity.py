@@ -1,8 +1,7 @@
 """Neo-Hookean FEM ground truth for the porous-sheet compression task
-(counterpart of metapde_tpu/solvers/fem_elasticity.py: the sparse-direct
-solver ``solve_direct`` and what it needs; the JAX package's matrix-free
-Krylov cascade, ``solve`` and ``solve_x64``, is not on the family's path
-and is not ported).
+(counterpart of metapde_tpu/solvers/fem_elasticity.py): the sparse-direct
+solver ``solve_direct``, which the family's oracle calls, and the
+matrix-free cascade ``solve`` / ``solve_x64``, which no oracle calls.
 
 - Mesh: the static structured triangulation made conforming to the pores
   by node snapping (solvers/mesh2d.py); dead elements drop out of the
@@ -37,6 +36,33 @@ density (``_elem_fns``), held equal to the JAX package's jax.grad and
 jax.hessian of the same density by tests/test_torch_fem_elasticity.py.
 ``solve_direct.newton_steps`` counts the Newton iterations that assembled
 a Hessian.
+
+The cascade (``solve``) runs on the params' device in their dtype, as the
+JAX package's jitted stages run on theirs: the coarsest level (halved
+while even and >= 12) takes damped Newton with load stepping from the
+affine compression profile, each finer level Newton at full load from the
+P1 prolongation of the coarser solution. A Newton step is matrix-free CG
+(``newton.cg``: jax.scipy.sparse.linalg.cg's stopping rule, tol 1e-5 in
+float32 and 1e-9 in float64, maxiter max(200, 8 res)) on Hessian-vector
+products, a non-finite direction zeroed, then the best of six step
+lengths on the true energy if it lowers it. One departure: the energy
+that the line search compares is evaluated in float64 from the iterate
+(gradient, Hessian and CG stay in the params' dtype). In float32 its
+rounding, ~1e-9 at an energy of 0.0125, hides the last decreases, and
+where Newton then stalls turns on the rounding of each device's sums: on
+tests/test_x64_oracles.py's PRNGKey(1) task at 12 the port's float32
+energy stalled at |g| 6.8e-5 where the JAX package's reached 2.1e-6, and
+at 24 both stalled (|g| 0.26 and 0.24) where the float64-energy search
+converges (2.3e-5, within 1.3e-4 of the float64 cascade). The
+Hessian-vector product
+applies the closed-form element Hessians of the step's iterate
+(``_elem_terms``, the torch form of ``_elem_fns``, built once a Newton
+step): a gather of v at the element dofs, a 6x6 product an element and an
+index_add back, constrained rows replaced by the tether identity, as
+jax.jvp of jax.grad of the energy gives it. A Newton step makes no host
+read but CG's one an iteration; on a card each CG iteration replays as one
+CUDA graph. ``solve.newton_steps`` counts Newton steps (CG iterations:
+``newton.cg.iterations``).
 """
 
 from typing import NamedTuple
@@ -46,6 +72,8 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
+from ..device import full_f32_matmuls
+from . import newton
 from .mesh2d import evaluate_p1, mesh_topology, node_coords, snapped_geometry
 
 _JMIN = 0.05
@@ -340,3 +368,222 @@ def solve_direct(params, resolution: int = 32, xmin: float = 0.0, xmax: float = 
 
 
 solve_direct.newton_steps = 0
+
+
+# ---------------------------------------------------------------------------
+# The matrix-free cascade, on the params' device
+# ---------------------------------------------------------------------------
+
+_ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.03, 0.01)
+
+
+def _elem_terms(ue, gradphi, mu, kappa):
+    """The torch form of _elem_fns' gradient and Hessian: ue [E, 3, 2],
+    gradphi [E, 3, 2] -> ([E, 6], [E, 6, 6]) in the local dofs (dof 2k + d
+    is node k's component d)."""
+    F = torch.eye(2, dtype=ue.dtype, device=ue.device) + torch.einsum(
+        "ekd,ekg->edg", ue, gradphi)
+    f = F.reshape(-1, 4)
+    J = f[:, 0] * f[:, 3] - f[:, 1] * f[:, 2]
+    cof = torch.stack([f[:, 3], -f[:, 2], -f[:, 1], f[:, 0]], dim=1)     # dJ/df
+    Ic = (f * f).sum(dim=1)
+    live = (J > _JMIN).to(f.dtype)
+    Jc = torch.clamp(J, min=_JMIN)
+    pen = torch.clamp(_JMIN - J, min=0.0)
+    col = (slice(None), None)
+    g_f = ((mu / 2.0) * (2.0 * f / Jc[col] - (live * Ic / Jc ** 2)[col] * cof)
+           + (kappa * (J - 1.0))[col] * cof - (2e4 * mu * pen)[col] * cof)
+    d2j = torch.as_tensor(_D2J, dtype=f.dtype, device=f.device)
+    eye = torch.eye(4, dtype=f.dtype, device=f.device)
+    outer = cof[:, :, None] * cof[:, None, :]
+    fc = f[:, :, None] * cof[:, None, :]
+    col = (slice(None), None, None)
+    h_f = ((mu / 2.0) * (2.0 * eye / Jc[col]
+                         + live[col] * (-2.0 * (fc + fc.transpose(1, 2)) / (Jc ** 2)[col]
+                                        + 2.0 * (Ic / Jc ** 3)[col] * outer
+                                        - (Ic / Jc ** 2)[col] * d2j))
+           + kappa * outer + (kappa * (J - 1.0))[col] * d2j
+           + 2e4 * mu * ((pen > 0).to(f.dtype)[col] * outer - pen[col] * d2j))
+    # f index 2d + g; df_{2d+g} / du_{2k+d} = gradphi[k, g]
+    ge = torch.einsum("edg,ekg->ekd", g_f.reshape(-1, 2, 2), gradphi).reshape(-1, 6)
+    he = torch.einsum("ekg,edgch,elh->ekdlc", gradphi, h_f.reshape(-1, 2, 2, 2, 2),
+                      gradphi).reshape(-1, 6, 6)
+    return ge, he
+
+
+def _torch_problem(params, resolution, xmin, xmax, ymin, ymax):
+    """Geometry, masks and the reduced energy of one task on the params'
+    device in the dtype of bc_params (JAX's _build_problem): a dict with
+    the geometry, `energy(z [..., 2N], top_disp) -> [...]`, `u_of`,
+    `grad_hess(z, top_disp) -> (g [2N], hvp)` and the dof masks."""
+    _, bc_params, per_hole_params, n_holes = params
+    dtype, device = bc_params.dtype, bc_params.device
+    tris_np = mesh_topology(resolution)
+    tris = torch.as_tensor(tris_np, dtype=torch.long, device=device)
+    coords0 = torch.as_tensor(node_coords(resolution, xmin, xmax, ymin, ymax), dtype=dtype,
+                              device=device)
+    n_nodes = coords0.shape[0]
+    close = lambda a, b: torch.isclose(a, torch.full_like(a, b), rtol=1e-5, atol=1e-8)
+    on_rect = (close(coords0[:, 0], xmin) | close(coords0[:, 0], xmax)
+               | close(coords0[:, 1], ymin) | close(coords0[:, 1], ymax))
+    cell_h = min((xmax - xmin), (ymax - ymin)) / resolution
+    geom = snapped_geometry(tris_np, coords0, per_hole_params, n_holes, cell_h,
+                            boundary_fixed=on_rect)
+    young = bc_params[0]
+    mu, kappa = young / (2.0 * (1.0 + 0.49)), young / (3.0 * (1.0 - 2.0 * 0.49))
+    on_top = close(coords0[:, 1], ymax)
+    constrained = close(coords0[:, 1], ymin) | on_top
+    cons = constrained.to(dtype)
+    w_e = geom.elem_alive * geom.area
+    dead_w = (1.0 - geom.node_alive) * (1.0 - cons)
+    free = ~constrained.repeat_interleave(2)
+    freef = free.to(dtype)
+    # the tether diagonal: dead free nodes and the unused z entries of
+    # constrained nodes
+    diag_tether = (dead_w + cons).repeat_interleave(2)
+    edofs = torch.stack([2 * tris[:, k // 2] + k % 2 for k in range(6)], dim=1)   # [E, 6]
+    top_row = torch.stack([torch.zeros_like(cons), on_top.to(dtype)], dim=1)       # [N, 2]
+
+    def u_of(z, top_disp):
+        u = z.reshape(*z.shape[:-1], n_nodes, 2)
+        return torch.where(constrained[:, None], top_disp * top_row, u)
+
+    # the energy, in float64 whatever the dtype (module docstring)
+    f64 = lambda t: t.to(torch.float64)
+    gradphi64, w_e64, dead_w64, cons64 = map(f64, (geom.gradphi, w_e, dead_w, cons))
+    mu64, kappa64 = f64(mu), f64(kappa)
+
+    def energy(z, top_disp):
+        """[...]: the energy of z [..., 2N], float64."""
+        u, zz = f64(u_of(z, top_disp)), f64(z.reshape(*z.shape[:-1], n_nodes, 2))
+        grad_u = torch.einsum("...ekd,ekg->...edg", u[..., tris, :], gradphi64)
+        F = torch.eye(2, dtype=torch.float64, device=device) + grad_u
+        J = F[..., 0, 0] * F[..., 1, 1] - F[..., 0, 1] * F[..., 1, 0]
+        Ic = (F * F).sum(dim=(-2, -1))
+        psi = ((mu64 / 2.0) * (Ic / torch.clamp(J, min=_JMIN) - 2.0)
+               + (kappa64 / 2.0) * (J - 1.0) ** 2
+               + (1e4 * mu64) * torch.clamp(_JMIN - J, min=0.0) ** 2)
+        tether = (0.5 * (dead_w64[:, None] * u ** 2).sum(dim=(-2, -1))
+                  + 0.5 * (cons64[:, None] * zz ** 2).sum(dim=(-2, -1)))
+        return (w_e64 * psi).sum(dim=-1) + tether
+
+    def grad_hess(z, top_disp, hessian=True):
+        """The energy's gradient in z, and its Hessian-vector product at z
+        (None unless `hessian`)."""
+        ue = u_of(z, top_disp)[tris]                                       # [E, 3, 2]
+        with full_f32_matmuls():
+            ge, he = _elem_terms(ue, geom.gradphi, mu, kappa)
+        g = torch.zeros_like(z).index_add_(0, edofs.reshape(-1),
+                                           (w_e[:, None] * ge).reshape(-1))
+        g = g * freef + diag_tether * z
+        if not hessian:
+            return g, None
+        he = w_e[:, None, None] * he
+
+        def hvp(v):
+            ve = (v * freef)[edofs]                                        # [E, 6]
+            hv = (he * ve[:, None, :]).sum(dim=-1)
+            out = torch.zeros_like(v).index_add_(0, edofs.reshape(-1), hv.reshape(-1))
+            return out * freef + diag_tether * v
+
+        return g, hvp
+
+    return {"geom": geom, "n_nodes": n_nodes, "energy": energy, "u_of": u_of,
+            "grad_hess": grad_hess, "free": free}
+
+
+def _newton(prob, z, top_disp, newton_steps, resolution):
+    """`newton_steps` damped Newton steps (JAX's newton_solve); on a card
+    each CG iteration is one CUDA graph (the Hessian product makes no host
+    reads)."""
+    cg_tol = 1e-5 if z.dtype == torch.float32 else 1e-9
+    alphas = torch.tensor(_ALPHAS, dtype=z.dtype, device=z.device)
+    energy = lambda zz: prob["energy"](zz, top_disp)
+    for _ in range(newton_steps):
+        g, hvp = prob["grad_hess"](z, top_disp)
+        dz = newton.cg(hvp, -g, tol=cg_tol, maxiter=max(200, 8 * resolution),
+                       cuda_graph=True)
+        dz = torch.where(torch.isfinite(dz), dz, torch.zeros_like(dz))
+        e0 = energy(z)
+        cand = energy(z + alphas[:, None] * dz)
+        cand = torch.where(torch.isfinite(cand), cand, torch.full_like(cand, float("inf")))
+        best = torch.argmin(cand)
+        z = torch.where(cand[best] < e0, z + alphas[best] * dz, z)
+        solve.newton_steps += 1
+    return z
+
+
+def _pack(prob, z, resolution, xmin, xmax, ymin, ymax, top_displacement):
+    u = prob["u_of"](z, top_displacement)
+    m = resolution + 1
+    geom = prob["geom"]
+    g, _ = prob["grad_hess"](z, top_displacement, hessian=False)
+    return ElasticityGroundTruth(
+        u_grid=u.reshape(m, m, 2), coords_grid=geom.coords.reshape(m, m, 2),
+        alive_grid=geom.node_alive.reshape(m, m), elem_alive=geom.elem_alive,
+        bounds=torch.tensor([xmin, xmax, ymin, ymax], dtype=z.dtype, device=z.device),
+        final_energy=prob["energy"](z, top_displacement).to(z.dtype),
+        final_gnorm=torch.linalg.norm(g))
+
+
+def _solve_base(params, resolution, xmin, xmax, ymin, ymax, load_steps, newton_steps,
+                top_displacement):
+    """The coarsest level: the affine warm start (masked to free dofs) and
+    load stepping."""
+    prob = _torch_problem(params, resolution, xmin, xmax, ymin, ymax)
+    coords = prob["geom"].coords
+    frac = (coords[:, 1] - ymin) / (ymax - ymin)
+    affine = torch.stack([torch.zeros_like(frac), frac], dim=1).reshape(-1) * prob["free"]
+    ddisp = top_displacement / load_steps
+    z = torch.zeros_like(affine)
+    for k in range(1, load_steps + 1):
+        z = z + ddisp * affine
+        z = _newton(prob, z, top_displacement * k / load_steps, newton_steps, resolution)
+    return _pack(prob, z, resolution, xmin, xmax, ymin, ymax, top_displacement)
+
+
+def _refine_stage(params, coarse_gt, resolution, xmin, xmax, ymin, ymax, newton_steps,
+                  top_displacement):
+    """One cascade level: P1-prolong the coarser solution onto this level's
+    snapped mesh (dead nodes and constrained rows' z at 0) and Newton at
+    full load."""
+    prob = _torch_problem(params, resolution, xmin, xmax, ymin, ymax)
+    geom = prob["geom"]
+    z0 = evaluate_p1(coarse_gt.u_grid, coarse_gt.coords_grid, coarse_gt.elem_alive,
+                     coarse_gt.bounds, geom.coords).reshape(-1)
+    keep = (geom.node_alive.repeat_interleave(2) > 0.5) & prob["free"]
+    z0 = torch.where(keep, z0, torch.zeros_like(z0))
+    z = _newton(prob, z0, top_displacement, newton_steps, resolution)
+    return _pack(prob, z, resolution, xmin, xmax, ymin, ymax, top_displacement)
+
+
+def solve(params, resolution: int = 32, xmin: float = 0.0, xmax: float = 1.0,
+          ymin: float = 0.0, ymax: float = 1.0, load_steps: int = 4, newton_steps: int = 25,
+          top_displacement: float = -0.12) -> ElasticityGroundTruth:
+    """Cascadic solve at `resolution` on the params' device in their dtype
+    (module docstring): the base level with load stepping, then each 2x
+    refinement from the previous level."""
+    chain = [resolution]
+    while chain[-1] % 2 == 0 and chain[-1] // 2 >= 12:
+        chain.append(chain[-1] // 2)
+    chain.reverse()
+    gt = _solve_base(params, chain[0], xmin, xmax, ymin, ymax, load_steps, newton_steps,
+                     top_displacement)
+    for res in chain[1:]:
+        gt = _refine_stage(params, gt, res, xmin, xmax, ymin, ymax, newton_steps,
+                           top_displacement)
+    return gt
+
+
+solve.newton_steps = 0
+
+
+def solve_x64(params, resolution: int = 48, xmin: float = 0.0, xmax: float = 1.0,
+              ymin: float = 0.0, ymax: float = 1.0, load_steps: int = 4,
+              newton_steps: int = 40, top_displacement: float = -0.12) -> ElasticityGroundTruth:
+    """The cascade in float64 (the float leaves of params cast; CG's
+    tolerance 1e-9), for accuracy sweeps."""
+    params64 = tuple(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                     for a in params)
+    return solve(params64, resolution, xmin, xmax, ymin, ymax, load_steps, newton_steps,
+                 top_displacement)

@@ -11,8 +11,11 @@ and when the caller asks (cuda_graph=True: its residual and preconditioner
 make no host reads), one BiCGStab iteration is captured as a CUDA graph and
 replayed in place of the hundreds of eager launches it makes: the same
 kernels on the same values, so the same iterates.
-``bicgstab.iterations`` and ``newton_krylov.steps`` count the iterations
-each has run, as plain integers a caller may reset and read.
+``cg`` is jax.scipy.sparse.linalg.cg's conjugate gradients, for the
+elasticity cascade's Hessian-vector products, with the same single host
+read an iteration and the same graph option.
+``bicgstab.iterations``, ``cg.iterations`` and ``newton_krylov.steps``
+count the iterations each has run, as plain integers a caller may reset and read.
 """
 
 from typing import Callable, NamedTuple
@@ -79,6 +82,50 @@ def bicgstab(A: Callable, b: torch.Tensor, *, tol: float = 1e-5,
         bicgstab.iterations += 1
         keep_going = advance()
     return state[0]
+
+
+def cg(A: Callable, b: torch.Tensor, *, tol: float = 1e-5, atol: float = 0.0,
+       maxiter: int, cuda_graph: bool = False) -> torch.Tensor:
+    """Solve A x = b from x0 = 0 by conjugate gradients, A symmetric
+    positive definite, with the semantics of jax.scipy.sparse.linalg.cg
+    (no preconditioner): stops when |r|^2 <= max(tol^2 |b|^2, atol^2) or
+    after `maxiter` iterations, without error. A is linear, so r0 = b. A
+    non-finite curvature p.Ap makes gamma NaN, and the test then stops the
+    loop, as JAX's while_loop stops. cuda_graph=True replays each iteration
+    as one CUDA graph when b lies on a CUDA device (A must then make no
+    host reads)."""
+    atol2 = torch.clamp(tol ** 2 * torch.dot(b, b), min=atol ** 2)
+    # x, r, p, gamma = r.r
+    state = [torch.zeros_like(b), b.clone(), b.clone(), torch.dot(b, b)]
+
+    def step(x, r, p, gamma):
+        Ap = A(p)
+        alpha = gamma / torch.dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        gamma_ = torch.dot(r, r)
+        p = r + (gamma_ / gamma) * p
+        return [x, r, p, gamma_]
+
+    def go(state):
+        return state[3] > atol2
+
+    if cuda_graph and b.is_cuda:
+        advance = _captured(step, go, state)
+    else:
+        def advance():
+            state[:] = step(*state)
+            return go(state)
+    keep_going = go(state)
+    for _ in range(maxiter):
+        if not bool(keep_going.item()):
+            break
+        cg.iterations += 1
+        keep_going = advance()
+    return state[0]
+
+
+cg.iterations = 0
 
 
 def _captured(step, test, state):

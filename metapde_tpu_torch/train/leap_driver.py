@@ -38,8 +38,9 @@ deploy.n_starts > 1 wraps the deployment in the multi-start
 torch.distributed process group as in the MAML driver (every rank draws
 the whole step and keeps its share; the pt means in meta/leap.py, the dp
 mean and the loss gather in parallel/sharding.py); validation_losses and
-the deployment stay unsharded. Not ported: viz_every and profile_dir;
-each raises NotImplementedError.
+the deployment stay unsharded. viz_every and profile_dir are accepted and
+ignored, as the JAX LEAP driver ignores them: its blocks end at log_every
+and checkpoint_every only.
 """
 
 import torch

@@ -20,8 +20,9 @@ resume loads the same checkpoint on every rank.
 import dataclasses
 import json
 import os
+import traceback
 from functools import partial
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -34,6 +35,7 @@ from ..pdes import get_pde
 from ..utils import Timer
 from ..utils.trees import tree_map
 from . import checkpoints as ckpt
+from . import viz
 from .energy import make_branch_kwargs
 from .gt_cache import task_cache_extra
 from .metrics import prepare_logging
@@ -96,19 +98,9 @@ def validation_kwargs(task_cfg):
                 symmetry=task_cfg.pde == "hyper_elasticity")
 
 
-def check_run_options(cfg: Config):
-    if cfg.train.viz_every > 0 and cfg.train.expt_name is not None:
-        raise NotImplementedError("viz_every: the ground-truth plots (train/viz.py) are "
-                                  "not ported yet; pass --train.viz_every=0")
-    if cfg.train.profile_dir:
-        raise NotImplementedError("profile_dir is not ported yet; time the training "
-                                  "step with cli/train_bench")
-
-
 def start_run(cfg: Config, algo: str):
-    """Check the run options, open the run dir's log and metrics and write
-    its config.json; returns (path, log, metrics)."""
-    check_run_options(cfg)
+    """Open the run dir's log and metrics and write its config.json;
+    returns (path, log, metrics)."""
     out_dir = cfg.train.out_dir or f"{cfg.task.pde}_{algo}_results"
     path, log, metrics = prepare_logging(out_dir, cfg.train.expt_name)
     log(cfg.to_json())
@@ -136,14 +128,23 @@ def eval_ground_truth(cfg: Config, pde, eval_seed: int, device, log):
     return bundle
 
 
-def next_block(cfg: Config, step: int) -> int:
-    """Outer steps to take in one call from `step`: up to the next
-    log/checkpoint boundary or the end, at most train.steps_per_call."""
+def boundaries(cfg: Config, plots: bool) -> tuple:
+    """The cadences that end a block: log_every and checkpoint_every, and
+    viz_every for a driver that plots (the JAX MAML driver; its LEAP driver
+    leaves viz_every out)."""
+    if plots:
+        return cfg.train.log_every, cfg.train.viz_every, cfg.train.checkpoint_every
+    return cfg.train.log_every, cfg.train.checkpoint_every
+
+
+def next_block(cfg: Config, step: int, everies: tuple) -> int:
+    """Outer steps to take in one call from `step`: up to the next boundary
+    of `everies` (boundaries()) or the end, at most train.steps_per_call."""
     spc = max(1, cfg.train.steps_per_call)
     if spc == 1:
         return 1
     n = cfg.train.outer_steps - step
-    for every in (cfg.train.log_every, cfg.train.checkpoint_every):
+    for every in everies:
         if every and every > 0:
             n = min(n, every - step % every)
     return max(1, min(n, spc))
@@ -165,7 +166,11 @@ class Learner(NamedTuple):
       losses [T, ...], its meta-gradient norm, the per-step meta-loss
       means [n_steps]), with no host read.
     model: state -> the model make_coef_func_batched adapts.
-    val_meta_loss: state -> the meta-loss on the fixed validation draw."""
+    val_meta_loss: state -> the meta-loss on the fixed validation draw.
+    adapt: (model, task params, k) -> one task's k-step adaptation, for
+      the plots of train.viz_every; None for a driver that, like the JAX
+      LEAP driver, neither plots nor traces (viz_every and profile_dir
+      are then ignored)."""
 
     name: str
     inner_steps: int
@@ -173,6 +178,7 @@ class Learner(NamedTuple):
     step: Callable
     model: Callable
     val_meta_loss: Callable
+    adapt: Optional[Callable] = None
 
 
 def _resume(cfg: Config, learner: Learner, s: dict, gen, device, log):
@@ -231,7 +237,6 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
     if writer:
         path, log, metrics = start_run(cfg, learner.name)
     else:
-        check_run_options(cfg)
         path, log, metrics = None, lambda *_: None, None
     device, gen = c["device"], c["generator"]
     if mesh is not None:
@@ -255,9 +260,14 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
                 "torch_rng_state": gen.get_state(), "torch_eval_seed": eval_seed,
                 "torch_next_step": step}
 
+    plots = learner.adapt is not None
+    everies = boundaries(cfg, plots)
+    trace = Trace(cfg.train.profile_dir if plots and writer else None,
+                  cfg.train.profile_steps, device, log)
     step = resume_step
     while step < cfg.train.outer_steps:
-        block = next_block(cfg, step)
+        trace.iteration()
+        block = next_block(cfg, step, everies)
         with Timer() as t:
             s, losses, meta_grad_norm, ml_means = learner.step(gen, s, block)
             device_barrier(device)
@@ -318,11 +328,14 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
                     cfg.train.best_metric, val.rel_err)
                 ckpt.save_best_checkpoint(path, log_step, float(best_val), _state(step))
 
+        if path is not None and plots and hit(cfg, cfg.train.viz_every, step):
+            render_viz(path, cfg, c, learner.model(s), learner.adapt, bundle, log_step)
         if path is not None and save:
             ckpt.save_checkpoint(path, log_step, _state(step))
         if validate or save:
             barrier(mesh)
 
+    trace.stop()
     if path is not None:
         ckpt.save_checkpoint(path, step, _state(step))
     if metrics is not None:
@@ -333,6 +346,75 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
         f"{siren_fused.siren_apply_fused_batched.launches}, "
         f"peak device memory by rank {json.dumps(peaks)}")
     return s
+
+
+class Trace:
+    """torch.profiler over loop iterations 1 .. profile_steps (iteration 0
+    is the warm-up), as the JAX MAML driver traces with jax.profiler: the
+    trace starts at the top of iteration 1 and stops at the top of
+    iteration 1 + profile_steps, or when training ends first. It is written
+    into `profile_dir` as a Chrome trace (trace.json: host ops, and on a
+    card the CUDA kernels and copies with their launches, each loop
+    iteration a span named loop_iteration_<i>), not XLA's format.
+    profile_dir None: no trace."""
+
+    def __init__(self, profile_dir, profile_steps, device, log):
+        self.dir, self.steps, self.device, self.log = profile_dir, profile_steps, device, log
+        self.it, self.prof, self.span = 0, None, None
+
+    def iteration(self):
+        """Call at the top of each loop iteration."""
+        if self.dir and self.it == 1:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+        if self.prof is not None and self.it == 1 + self.steps:
+            self.stop()
+            self.log(f"wrote profiler trace to {self.dir}")
+        if self.prof is not None:
+            self._end_span()
+            self.span = torch.profiler.record_function(f"loop_iteration_{self.it}")
+            self.span.__enter__()
+        self.it += 1
+
+    def _end_span(self):
+        if self.span is not None:
+            self.span.__exit__(None, None, None)
+            self.span = None
+
+    def stop(self):
+        if self.prof is None:
+            return
+        device_barrier(self.device)
+        self._end_span()
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+        self.prof = None
+
+
+def render_viz(path, cfg: Config, c: dict, model, adapt, bundle, step):
+    """The ground-truth comparison plots of train.viz_every (train/viz.py):
+    td_burgers' time series of the first eval task, else the field grid of
+    up to 3 eval tasks at k = 0 and the trained inner steps. A failure is
+    printed with its traceback, never raised: plots must not end a
+    training run."""
+    try:
+        pde, apply = c["pde"], c["field"].apply
+        adapt_one = lambda i, p, k: adapt(model, p, k)
+        if cfg.task.pde == "td_burgers":
+            viz.plot_burgers_time_series(path, pde, bundle.gts[0], bundle.gt_params[0],
+                                         adapt_one, cfg.maml.inner_steps, apply, step=step)
+        else:
+            dom = cfg.task.domain
+            viz.compare_plots_with_ground_truth(
+                path, pde, bundle.gts, bundle.gt_params, adapt_one,
+                inner_steps_list=(0, cfg.maml.inner_steps),
+                bounds=(dom.xmin, dom.xmax, dom.ymin, dom.ymax), field_apply=apply, step=step)
+    except Exception:  # viz must never kill training
+        print(f"viz failed at step {step}:\n{traceback.format_exc()}", flush=True)
 
 
 def _validation(cfg: Config, c: dict, learner: Learner, eval_seed: int, log):

@@ -42,8 +42,10 @@ rank draws the whole step on the host and keeps its tasks and points
 rank ends the step with the same state. validation_losses, the deployment
 and make_coef_func* stay unsharded, as in the JAX package; run() validates
 and writes on rank 0 (train/loop.py). Without a process group a mesh
-raises, naming torchrun. Not ported: viz_every and profile_dir; each
-raises NotImplementedError.
+raises, naming torchrun. train.viz_every renders the ground-truth plots
+of train/viz.py on rank 0 (the adaptation from a generator seeded 0, as the
+JAX driver adapts from PRNGKey(0)); train.profile_dir writes a
+torch.profiler trace of loop iterations 1 .. profile_steps (train/loop.py).
 """
 
 import torch
@@ -252,7 +254,9 @@ def run(cfg: Config, device=DEFAULT_DEVICE):
               "lr_opt_state": (c["lr_opt"], "inner_lrs", "adam")},
         step=step, model=lambda s: (s["params"], s["inner_lrs"]),
         val_meta_loss=lambda s: float(
-            c["validation_losses"](s["params"], s["inner_lrs"])[1][0].mean()))
+            c["validation_losses"](s["params"], s["inner_lrs"])[1][0].mean()),
+        adapt=lambda model, task_params, k: c["get_final_model"](
+            torch.Generator().manual_seed(0), model, task_params, k))
     s = {"params": c["init_params"], "inner_lrs": c["inner_lrs"],
          "opt_state": c["outer_opt"].init(c["init_params"]),
          "lr_opt_state": c["lr_opt"].init(c["inner_lrs"])}

@@ -3,9 +3,11 @@ metapde_tpu/train/metrics.py).
 
 prepare_logging makes the experiment dir (an existing one is never
 deleted: a numeric suffix is added instead), log.txt and metrics.jsonl, one
-JSON record per validation with the JAX package's keys. The JAX package
-mirrors scalar metrics to TensorBoard events; that writer is not ported,
-so no ``tb/`` directory is written.
+JSON record per validation with the JAX package's keys, and mirrors every
+numeric scalar of a record (ints, floats and bools that are not NaN, by
+the JAX package's rule) to TensorBoard events under <run>/tb/
+(utils/tensorboard_logger.Logger); a logger that cannot be built leaves
+the jsonl stream alone.
 """
 
 import json
@@ -38,14 +40,24 @@ def prepare_logging(out_dir: Optional[str], expt_name: Optional[str]):
         print(*args, **kwargs, flush=True)
         print(*args, **kwargs, file=outfile, flush=True)
 
-    return path, log, MetricsLogger(os.path.join(path, "metrics.jsonl"))
+    return path, log, MetricsLogger(os.path.join(path, "metrics.jsonl"),
+                                    tb_dir=os.path.join(path, "tb"))
 
 
 class MetricsLogger:
-    """Append-only jsonl metrics writer."""
+    """Append-only jsonl metrics writer, its scalars mirrored to
+    TensorBoard events under tb_dir (None: no mirror)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, tb_dir: Optional[str] = None):
         self._f = open(path, "a")
+        self._tb = None
+        if tb_dir is not None:
+            from ..utils.tensorboard_logger import Logger
+
+            try:
+                self._tb = Logger(tb_dir)
+            except OSError as e:
+                print(f"no TensorBoard mirror ({e}); metrics.jsonl only", flush=True)
 
     def log(self, step: int, **metrics):
         rec = {"step": int(step), "time": time.time()}
@@ -53,9 +65,15 @@ class MetricsLogger:
             rec[k] = _to_py(v)
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
+        if self._tb is not None:
+            for k, v in rec.items():
+                if k not in ("step", "time") and isinstance(v, (int, float)) and v == v:
+                    self._tb.log_scalar(k, float(v), int(step))
 
     def close(self):
         self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 def _to_py(v):

@@ -40,7 +40,8 @@ COMMON = ["--task.inner_points=32", "--task.validation_points=32", "--task.n_eva
           "--train.checkpoint_every=2", "--device=cpu"]
 MAML = COMMON + ["--task.outer_points=32", "--maml.bsize=2", "--maml.inner_steps=2"]
 LEAP = COMMON + ["--leap.bsize=2", "--leap.inner_steps=2"]
-RUN_FILES = {"log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle"}
+# "tb": the TensorBoard mirror of metrics.jsonl (train/metrics.py), as the JAX run writes it
+RUN_FILES = {"log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle", "tb"}
 TIMEOUT = 240
 
 

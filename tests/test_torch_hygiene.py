@@ -49,7 +49,15 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     # the walk reaches every family and solver module
     assert {"metapde_tpu_torch.pdes.steady_burgers", "metapde_tpu_torch.pdes.poisson3d",
             "metapde_tpu_torch.solvers.fem_steady_burgers",
-            "metapde_tpu_torch.solvers.interpolation"} <= set(mods)
+            "metapde_tpu_torch.solvers.interpolation",
+            # the last modules of the JAX package
+            "metapde_tpu_torch.train.viz", "metapde_tpu_torch.cli.solution_viz",
+            "metapde_tpu_torch.utils.tb_writer", "metapde_tpu_torch.utils.tensorboard_logger",
+            "metapde_tpu_torch.utils.debugging", "metapde_tpu_torch.cli.roofline",
+            "metapde_tpu_torch.cli.pde_check", "metapde_tpu_torch.cli.train_curves",
+            "metapde_tpu_torch.cli.probe_table", "metapde_tpu_torch.cli.paper_plots",
+            "metapde_tpu_torch.models.field",
+            "metapde_tpu_torch.models.gradient_conditioned"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -201,4 +209,19 @@ def test_comparison_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
                  lambda: baseline_driver.run(config_mod.Config(), device="cuda")):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+    assert not list(tmp_path.iterdir())
+
+
+def test_tool_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
+    """solution_viz, pde_check and roofline run on the card unless given
+    --device=cpu, and refuse before writing anything without one."""
+    from metapde_tpu_torch.cli import pde_check, roofline, solution_viz
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main, argv in ((solution_viz.main, [f"--out={tmp_path}/x.png",
+                                            f"--train.load_model_from_expt={tmp_path}"]),
+                       (pde_check.main, [f"--out={tmp_path}/check"]),
+                       (roofline.main, ["--block=1", "--blocks=1"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(argv)
     assert not list(tmp_path.iterdir())

@@ -258,9 +258,13 @@ def test_cli_trains_on_the_cpu_and_refuses_unported_options(tmp_path):
     base = TINY + [f"--train.out_dir={tmp_path}", "--device=cpu"]
     leap_pde.main(base + ["--train.outer_steps=1", "--train.expt_name=cli"])
     assert all((tmp_path / "cli" / f).exists() for f in FILES)
-    for bad in ("--train.viz_every=10", f"--train.profile_dir={tmp_path}"):
-        with pytest.raises(NotImplementedError):
-            leap_pde.main(base + ["--train.outer_steps=1", "--train.expt_name=bad", bad])
+    # viz_every and profile_dir, which the port once refused, are accepted
+    # and ignored, as the JAX LEAP driver ignores them
+    leap_pde.main(base + ["--train.outer_steps=2", "--train.expt_name=viz",
+                          "--train.viz_every=1", f"--train.profile_dir={tmp_path / 'prof'}",
+                          "--train.profile_steps=1"])
+    assert not (tmp_path / "prof").exists()
+    assert not list((tmp_path / "viz").glob("viz_*"))
     # every family is ported; an unknown name raises as the JAX registry does
     with pytest.raises(ValueError, match="unrecognized pde"):
         leap_pde.main(base + ["--train.outer_steps=1", "--train.expt_name=bad",

@@ -148,13 +148,28 @@ def test_cli_trains_on_the_cpu_and_refuses_unported_options(tmp_path):
     base = TINY + [f"--train.out_dir={tmp_path}", "--device=cpu"]
     maml_pde.main(base + ["--train.outer_steps=2", "--train.expt_name=cli"])
     assert all((tmp_path / "cli" / f).exists() for f in FILES)
-    for bad in ("--train.viz_every=10", f"--train.profile_dir={tmp_path}"):
-        with pytest.raises(NotImplementedError):
-            maml_pde.main(base + ["--train.outer_steps=1", "--train.expt_name=bad", bad])
+    # viz_every and profile_dir, which the port once refused, now run as the
+    # JAX MAML driver runs them: plots at the viz boundaries, a trace of
+    # loop iterations 1 .. profile_steps
+    maml_pde.main(base + ["--train.outer_steps=3", "--train.expt_name=viz",
+                          "--train.viz_every=2", f"--train.profile_dir={tmp_path / 'prof'}",
+                          "--train.profile_steps=1"])
+    assert (tmp_path / "prof" / "trace.json").exists()
+    assert "wrote profiler trace" in (tmp_path / "viz" / "log.txt").read_text()
+    pngs = sorted(p.name for p in (tmp_path / "viz").glob("viz_step_*.png"))
+    assert pngs == (["viz_step_0.png", "viz_step_2.png"] if _have_matplotlib() else [])
     # every family is ported; an unknown name raises as the JAX registry does
     with pytest.raises(ValueError, match="unrecognized pde"):
         maml_pde.main(base + ["--train.outer_steps=1", "--train.expt_name=bad",
                               "--task.pde=heat"])
+
+
+def _have_matplotlib():
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
 
 
 def test_train_bench_prints_its_line_on_the_cpu(capsys):
