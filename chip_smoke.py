@@ -8,7 +8,11 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
   1 build     nvcc builds csrc/siren_fused.cu for sm_90a (or finds it built),
               with ptxas's register and spill report
   2 kernel    siren_fused against its plain PyTorch version on the card, max
-              |diff| <= 1e-5 on twenty cases (the last, `nn_leap_path`, one task
+              |diff| <= 1e-5 on twenty-six cases (the last six this slice's:
+              LEAP training's validation of ldb3_2, 4 x 1008 at 10x128, and
+              of lde2_3, 8 x 1024 with two outputs, and the Burgers and
+              hyperelasticity sweeps' one model at 1 x 1008 and 2 x 1024,
+              at 8x64 and 10x128; before them `nn_leap_path`, one task
               x 1024 points at 5x64 with one weight set, lp2_4's fine-tune
               validation; `main_path` is tpu_run6b's at 3x64): the four configs of
               tests/test_pallas_siren.py, one task at the main path's shape
@@ -47,8 +51,12 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               value is finite, and the k = 5 median relative error beats
               k = 0 and is within 3x of the JAX package's
   5 ground_truth_mg  one task solved at resolution 32 (multigrid
-              preconditioner) on the card and on the CPU: u_grids within
-              1e-4 of the grid's largest |value|; seconds per task, Newton
+              preconditioner) on the card and on the CPU, each u_grid
+              within 3x the JAX package's own f32 distance (1.836e-4 of the
+              grid's largest |value|) of the float64 solve on the card (the
+              Newton target sits at the f32 floor, so two f32 solves are
+              not held to each other: their distance is printed); seconds
+              per task, Newton
               steps, BiCGStab iterations per Newton step, kernel launches
               per V-cycle; one BiCGStab solve on the stiffness operator
               with each iteration a CUDA graph and eager: the same iteration
@@ -249,12 +257,15 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               committed sweep printed beside (16 other tasks, reference at
               64, its means carried by a few hard tasks); then cli/gt_convergence
               (one task at 4 and 8 against 16) on the card and, in a process
-              of its own, on the CPU: rel_mse within 1e-3 relative
+              of its own, on the CPU: sqrt(rel_mse) within 1e-5 (the Jacobi
+              solve at 8 stops at its iteration cap, and rel_mse's relative
+              difference magnifies the fields' ~1e-6 by hundreds)
  37 mesh_train  the parallel layer (metapde_tpu_torch/parallel), ranks in
               processes of their own, sharing the card through gloo (each
               with its own card and nccl where the machine has enough): (a)
               bench.py's flagship at full width through cli/distributed_smoke,
-              one outer step on dp = 2, pt = 2 and 2 x 2 in f32 and on 2 x 2
+              one outer step on the 2 x 2 mesh in f32 (dp = 2 and pt = 2 cut
+              in PR 15: the 2 x 2 mesh runs both axes' collectives) and on 2 x 2
               in bf16 against the one-process step on the same draws and card:
               the meta-gradient within 1e-4 of each leaf's scale and the losses
               within rtol 1e-4 (bf16: 1e-2), with steps/s, launches, collectives
@@ -288,6 +299,43 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
  41 tools     cli/solution_viz on a copy of p30k_f32_s1 twice, the second
               reading its 3 ground truths from gt_cache_torch/; the figure
               where matplotlib is installed, else its name is None
+ 42 leap_family_parity  one LEAP outer step from ldb3_2's
+              checkpoint_step_40000 and from lde2_3's best checkpoint, each
+              with its Adam state, at full width and 2048 points (bsize 2,
+              10 inner steps: cuts in `reduced`), on the card and on the CPU
+              on shared host draws: params within 1e-4 of each leaf's scale,
+              meta-losses rtol 1e-3, the meta-gradient within 1e-1 of each
+              leaf's largest entry and 1e-3 of its norm
+ 43 leap_burgers_train  pipeline/leap_meta.sh's TD-Burgers command through
+              cli/leap_pde --from_run on a copy of ldb3_2, resumed from its
+              checkpoint_step_40000 with its Adam state at full width and
+              depth (10x128, 80 inner steps, bsize 8, 2048 points, 4 eval
+              tasks, FV ground truth at 512 x 201): 2 outer steps in one
+              block and one validation through the kernel (one launch), the
+              JAX run's metrics keys, 201 finite per-timestep errors,
+              val_rel_err within 3x the JAX package's from the same
+              checkpoint on the same eval tasks
+              (tests/jax_leap_family_bar.py), the final checkpoint's keys;
+              a resumed step that solves nothing; one timed and one profiled
+              step (steps/s, launches, idle share, peak memory)
+ 44 leap_elasticity_train  the same for its hyperelasticity command on
+              lde2_3 (20 inner steps, mirror-symmetric validation, the host
+              ground truth at 32), resumed from its latest checkpoint
+ 45 nn_deploy_burgers  pipeline/deployment_burgers.sh's two commands through
+              cli/sweep (nn_pde_maml from results_burgers_maml/tpu_run1 at
+              8x64 with the MAML warm-up, nn_pde from
+              results_burgers_leap/ldb3_1 at 10x128; 1024 points,
+              validation every 5 steps against the FV ground truth at 512),
+              cut to 100 of the 200 Adam steps and 2 of the 8 seeds (in
+              `reduced`), the jobs at once: one launch per validation call,
+              201 finite per-timestep errors in every row, the median over
+              the seeds of the step-95 val_rel_err within 3x the JAX
+              package's 8-seed median; then each command's step alone on
+              the card
+ 46 nn_deploy_elasticity  the same for pipeline/deployment_elasticity.sh
+              (tpu_run1 at 8x64, ground truth at 32, max_hole_size 1.0;
+              lde1 at 10x128, ground truth at 48, 0.5; the task and its
+              mirror in one launch a validation)
 Then a JSON line with every kernel's numbers (with the training and LEAP
 paths' launches), one with the training numbers and the total seconds, and
 last the ok line. A failed check raises: the exit code is then not 0. A
@@ -465,9 +513,24 @@ PANEL_TOL = 1e-4
 # bench.py's flagship in bf16, card against CPU: the bf16 rounding of the
 # carried tensors flips single ulps where the two sums differ by 1e-7
 BF16_LEAF_TOL = 1e-2
-# the multigrid ground truth, card against CPU, of the grid's largest |value|
+# the multigrid ground truth at resolution 32: each f32 solve (card, CPU)
+# against the float64 solve of the same discrete problem (on the card, to a
+# Newton tolerance far below f32's), within 3x the distance at which the JAX
+# package's own f32 solve of the same task stops (of the grid's largest
+# |value|). The f32 solves cannot be held to each other: the Newton target,
+# rel_tol 5e-6 x |r0|, lies at the float32 floor of the residual (a field
+# rounded to f32 has a float64 residual of 1.15e-4 to 1.26e-4 against the
+# task's target 1.27e-4), so the acceptance admits fields up to ~2e-4
+# apart; JAX's solve stops 1.836e-4 from the float64 solve and the port's
+# CPU solves 2.6e-7 to 1.2e-6, so card and CPU once landed 4.8e-4 apart
+# against the 1e-4 they were held to (PERF.md; tests/test_torch_gt_floor.py):
+#   env PYTHONPATH=. JAX_PLATFORMS=cpu python tests/jax_gt_floor_bar.py
 MG_RES = 32
-MG_TOL = 1e-4
+JAX_MG_F32_DIST = 1.836e-4
+MG_X64_TOL = 3.0 * JAX_MG_F32_DIST
+MG_X64_REL_TOL = 1e-11
+MG_X64_NEWTON = 40
+MG_X64_KRYLOV_TOL = 1e-12
 LEAP_RUN = REPO / "results_poisson_leap" / "lp2_4"
 LEAP_CKPT = LEAP_RUN / "checkpoint_step_60000.pickle"
 # lp2_4's deployments run on 4 fresh tasks (8 before hyperelasticity: their 8
@@ -600,9 +663,7 @@ NN_MAML_FLAGS = NN_COMMON + ["--model.num_layers=3", "--model.layer_size=64",
                              "--task.outer_points=1024"]
 NN_LEAP_FLAGS = NN_COMMON + ["--model.num_layers=5", "--model.layer_size=64",
                              "--maml.outer_lr=2.5e-5", "--task.outer_points=512"]
-NN_SEEDS = (1, 2, 3, 4)  # the script's 8 seeds, cut to 4
-NN_CONCURRENCY = len(NN_SEEDS)  # the sweep's jobs all at once on the one card
-NN_VALIDATIONS = 40      # steps 0, 5, ..., 195
+NN_SEEDS = (1, 2, 3, 4)  # the script's 8 seeds, cut to 4, their jobs all at once
 NN_FACTOR = 3.0
 # Median over the 8 seeds of val_rel_err at steps 0, 100 and 195 and of
 # each seed's best, from the JAX package's runs of the two commands,
@@ -628,10 +689,19 @@ BASELINE_REF = 32
 BASELINE_RESOLUTIONS = (4, 8, 16)
 BASELINE_N_EVAL = 4
 BASELINE_FACTOR = 10.0
-# card against CPU, one task at resolutions 4 and 8 against a reference at 16
+# card against CPU, one task at resolutions 4 and 8 against a reference at
+# 16: the RMS relative errors (sqrt of rel_mse) within 1e-5 of each other.
+# rel_mse itself is ill-posed card against CPU: at 8 the Jacobi BiCGStab of
+# both packages stops at its 200-iteration cap in the last Newton steps,
+# leaving fields ~1e-6 (of the grid's max) apart, and rel_mse (2.8e-7 here)
+# moves by 2 x that over its square root, 5.3e-4: a relative 4e-3, above
+# the 1e-3 relative bar it was once held to (PERF.md;
+# tests/test_torch_gt_floor.py). The square roots differ by at most the
+# fields' distance over the reference's RMS: 1e-5 is 10x the largest
+# measured (9.8e-7)
 BASELINE_PARITY_REF = 16
 BASELINE_PARITY_RESOLUTIONS = (4, 8)
-BASELINE_PARITY_RTOL = 1e-3
+BASELINE_PARITY_RMS_TOL = 1e-5
 # H100 SXM published peaks (dense, at the 700 W limit): TF32 on the tensor
 # cores, f32 outside them, and HBM bandwidth. The SFU returns 16 sines per
 # clock per SM where the CUDA cores do 128 f32 FMAs (2 flops each): the CUDA
@@ -790,11 +860,29 @@ KERNEL_CASES = [  # (name, FieldConfig overrides, tasks, points, weights)
     # the plain-PINN fine-tune's validation from lp2_4 (nn_deploy_leap):
     # one task x 1024 points at 5x64, one weight set
     ("nn_leap_path", dict(num_layers=5), 1, 1024, "one"),
+    # LEAP training's validation of ldb3_2 (its 4 eval tasks x 1008 points,
+    # 1024 cut to a multiple of the 63 time slices, at 10x128, streamed) and
+    # of lde2_3 (4 tasks and their mirrors x 1024, two outputs)
+    ("ldb3_2_train_path", dict(num_layers=10, layer_size=128), 4, 1008, "per_task"),
+    ("lde2_3_train_path", dict(num_layers=10, layer_size=128, out_dim=2, squeeze_scalar=False),
+     8, 1024, "per_task"),
+    # the plain-PINN sweeps' validation, one model: Burgers' one task x 1008
+    # at tpu_run1's 8x64 and ldb3_1's 10x128; hyperelasticity's task and its
+    # mirror x 1024, two outputs, at tpu_run1's 8x64 and lde1's 10x128
+    ("nn_burgers_maml_path", dict(num_layers=8), 1, 1008, "shared"),
+    ("nn_burgers_leap_path", dict(num_layers=10, layer_size=128), 1, 1008, "shared"),
+    ("nn_elasticity_maml_path", dict(num_layers=8, out_dim=2, squeeze_scalar=False), 2, 1024,
+     "shared"),
+    ("nn_elasticity_leap_path", dict(num_layers=10, layer_size=128, out_dim=2,
+                                     squeeze_scalar=False), 2, 1024, "shared"),
 ]
+# the cases of the slice's new paths (PR 15): their rows in the kernels line
+FAMILY_CASES = ("ldb3_2_train_path", "lde2_3_train_path", "nn_burgers_maml_path",
+                "nn_burgers_leap_path", "nn_elasticity_maml_path", "nn_elasticity_leap_path")
 CROSSING = ("tasks_cross", "wide_deep_tasks")
 TIMED = ("main_path", "main_path_2pow20", "main_path_batched", "main_path_shared",
          "tasks_cross", "leap_path", "burgers_path", "ldb3_path", "em7_9_path", "lde2_3_path",
-         "sburgers_path", "poisson3d_path", "nn_leap_path")
+         "sburgers_path", "poisson3d_path", "nn_leap_path", *FAMILY_CASES)
 # csrc/siren_fused.cu: points per (task, tile) item, and the most blocks of
 # its 256 threads an SM holds (2048 threads), so the most its persistent
 # grid can have per SM
@@ -1026,8 +1114,9 @@ def _solve_counted(solve, task, device):
 def phase_ground_truth_mg():
     """The first GT_MG_TASKS eval tasks (host draws, deploy_bench's seed)
     solved at resolution 32 with the multigrid preconditioner on the card
-    and on the CPU, one after the other, then the card side's V-cycle,
-    BiCGStab and profiled solve on a quiet host."""
+    and on the CPU, one after the other, each held to the float64 solve on
+    the card, then the card side's V-cycle, BiCGStab and profiled solve on
+    a quiet host."""
     t0 = time.perf_counter()
     pde = get_pde(Config().task)
     gen = torch.Generator().manual_seed(Config().seed + 7919)
@@ -1040,19 +1129,30 @@ def phase_ground_truth_mg():
     for task in tasks:
         g, g_s, g_steps, g_iters = _solve_counted(solve, task, "cuda")
         c, c_s, c_steps, c_iters = _solve_counted(solve, task, "cpu")
-        scale = float(c.u_grid.abs().max())
-        err = float((g.u_grid.cpu() - c.u_grid).abs().max()) / scale
+        ref, x_s, x_steps, x_iters = _solve_counted(
+            lambda t: fem_poisson.solve_x64(t, resolution=MG_RES, rel_tol=MG_X64_REL_TOL,
+                                            max_newton_steps=MG_X64_NEWTON,
+                                            krylov_tol=MG_X64_KRYLOV_TOL), task, "cuda")
+        ref = ref.u_grid.cpu()
+        scale = float(ref.abs().max())
+        card_err = float((g.u_grid.cpu().double() - ref).abs().max()) / scale
+        cpu_err = float((c.u_grid.double() - ref).abs().max()) / scale
         rows.append({"card_s": g_s, "cpu_s": c_s, "newton_steps": g_steps,
                      "krylov_iters": g_iters, "krylov_per_newton": g_iters / max(g_steps, 1),
                      "cpu_newton_steps": c_steps, "cpu_krylov_iters": c_iters,
                      "cpu_threads": torch.get_num_threads(),
                      "residual_norm": float(g.residual_norm),
-                     "cpu_residual_norm": float(c.residual_norm), "rel_err": err})
-        if not (bool(torch.isfinite(g.u_grid).all()) and err <= MG_TOL):
-            raise AssertionError(f"resolution-{MG_RES} u_grid: card vs CPU {err} of the "
-                                 f"grid's max (> {MG_TOL}), or not finite: {rows[-1]}")
+                     "cpu_residual_norm": float(c.residual_norm),
+                     "card_vs_x64": card_err, "cpu_vs_x64": cpu_err,
+                     "card_vs_cpu": float((g.u_grid.cpu() - c.u_grid).abs().max()) / scale,
+                     "x64_s": x_s, "x64_newton_steps": x_steps, "x64_krylov_iters": x_iters})
+        if not (bool(torch.isfinite(g.u_grid).all()) and max(card_err, cpu_err) <= MG_X64_TOL):
+            raise AssertionError(f"resolution-{MG_RES} u_grid: card {card_err}, CPU {cpu_err} "
+                                 f"of the grid's max from the float64 solve (> {MG_X64_TOL}), "
+                                 f"or not finite: {rows[-1]}")
     card_side = _ground_truth_mg_card(tasks)
-    emit("ground_truth_mg", t0, resolution=MG_RES, tol=MG_TOL, tasks=rows, **card_side)
+    emit("ground_truth_mg", t0, resolution=MG_RES, tol=MG_X64_TOL,
+         jax_f32_vs_x64=JAX_MG_F32_DIST, tasks=rows, **card_side)
     return {"s_per_task": statistics.mean(r["card_s"] for r in rows),
             "vcycle_launches": card_side["vcycle_launches"]}
 
@@ -1395,6 +1495,22 @@ def phase_train_bench():
     return rows
 
 
+def _meta_grad_err(card_opt, cpu_opt, old_mu):
+    """The meta-gradient each side's outer Adam took, recovered from its
+    new first moment (mu = b1 mu_old + (1 - b1) g, b1 = 0.9): the largest
+    |card - cpu| over each leaf's largest |g|, and over the tree's norm."""
+    b1, worst, diff_sq, norm_sq = 0.9, 0.0, 0.0, 0.0
+    for a, b, m in zip(tree_leaves(card_opt["mu"]), tree_leaves(cpu_opt["mu"]),
+                       tree_leaves(old_mu)):
+        m = m.cpu().double()
+        g_card = (a.cpu().double() - b1 * m) / (1 - b1)
+        g_cpu = (b.double() - b1 * m) / (1 - b1)
+        worst = max(worst, float((g_card - g_cpu).abs().max() / g_cpu.abs().max()))
+        diff_sq += float(((g_card - g_cpu) ** 2).sum())
+        norm_sq += float((g_cpu ** 2).sum())
+    return worst, math.sqrt(diff_sq / norm_sq)
+
+
 def _leap_train_both(cfg, steps, state):
     """LEAP's _train_both: `steps` outer steps of step_core on the card and
     on the CPU from the same (params, optimizer state), on the same host
@@ -1414,9 +1530,11 @@ def _leap_train_both(cfg, steps, state):
         t0 = time.perf_counter()
         out_cpu = cpus["step_core"](batch, *cpu_state)
         t_cpu += time.perf_counter() - t0
+        grad_leaf, grad_tree = _meta_grad_err(out_card[1], out_cpu[1], cpu_state[1]["mu"])
         card_state, cpu_state = out_card[:2], out_cpu[:2]
         ml_card, ml_cpu = out_card[2][:, -1].cpu(), out_cpu[2][:, -1]
         rows.append({
+            "meta_grad_leaf_err": grad_leaf, "meta_grad_tree_err": grad_tree,
             "param_leaf_err": _leaf_err(card_state[0], cpu_state[0]),
             "meta_loss_rel": float(((ml_card - ml_cpu).abs() / ml_cpu.abs()).max()),
             "losses_rel": float(((out_card[2].cpu() - out_cpu[2]).abs()
@@ -1493,15 +1611,15 @@ def phase_leap_deploy():
     return launches, adam_launches
 
 
-def _step_numbers(cfg, c, state, read):
-    """Two unprofiled outer steps of the driver build `c` at cfg's width
+def _step_numbers(cfg, c, state, read, timed=2):
+    """`timed` unprofiled outer steps of the driver build `c` at cfg's width
     from `state` (step_core's state arguments; host draw timed apart), then
     one step under torch.profiler tracing the card. read(out) -> (the new
     state, the host read the training loop makes)."""
     gen = torch.Generator().manual_seed(cfg.seed + 23)
     torch.cuda.reset_peak_memory_stats()
     draw_s, step_s = [], []
-    for _ in range(2):
+    for _ in range(timed):
         t0 = time.perf_counter()
         batch = c["draw_step_inputs"](gen)
         t1 = time.perf_counter()
@@ -2279,23 +2397,28 @@ def _done_line(run):
     return float(words[4]), float(words[8]), int(words[12])
 
 
-def _nn_sweep(name, driver, flags, init_run, jax_medians, warmup):
-    """cli/sweep over NN_SEEDS with `driver` and the command's flags from
-    `init_run`, the kernel on, into the shared out_dir; each job counts its
-    own siren_fused launches from 0 (a fresh process) and writes them in
-    its log.txt's closing line. Holds each seed to one launch per
-    validation call and the median over the seeds of the step-195
-    val_rel_err to NN_FACTOR x the JAX package's 8-seed median."""
+def _nn_sweep(name, driver, flags, init_run, jax_medians, warmup, seeds=NN_SEEDS, steps=200,
+              report=(0, 100), num_tsteps=None):
+    """cli/sweep over `seeds` (all at once) with `driver` and the command's
+    flags from `init_run`, the kernel on, `steps` Adam steps, into the
+    shared out_dir; each job counts its own siren_fused launches from 0 (a
+    fresh process) and writes them in its log.txt's closing line. Holds
+    each seed to one launch per validation call (and with `num_tsteps`,
+    every row to that many finite per-timestep errors) and the median over
+    the seeds of the last validation's val_rel_err (step steps - 5) to
+    NN_FACTOR x the JAX package's 8-seed median at that step; the medians
+    at the steps of `report` and of each seed's best are printed beside."""
     t0 = time.perf_counter()
     out = _nn_out()
+    concurrency = len(seeds)
     cmd = [sys.executable, "-m", "metapde_tpu_torch.cli.sweep", f"--driver={driver}",
-           "--seeds=" + ",".join(map(str, NN_SEEDS)), f"--concurrency={NN_CONCURRENCY}", "--",
-           *flags, "--model.use_pallas_inference=true",
+           "--seeds=" + ",".join(map(str, seeds)), f"--concurrency={concurrency}", "--",
+           *flags, f"--train.outer_steps={steps}", "--model.use_pallas_inference=true",
            f"--train.load_model_from_expt={init_run}", f"--train.out_dir={out}",
            f"--train.expt_name={name}"]
     # the jobs share the host's cores for their draws and launches
     env = {**os.environ,
-           "OMP_NUM_THREADS": str(max(1, len(os.sched_getaffinity(0)) // NN_CONCURRENCY))}
+           "OMP_NUM_THREADS": str(max(1, len(os.sched_getaffinity(0)) // concurrency))}
     proc = _spawn(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                   env=env)
     try:
@@ -2305,43 +2428,50 @@ def _nn_sweep(name, driver, flags, init_run, jax_medians, warmup):
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"{name}: the sweep exited {proc.returncode}: {text[-4000:]}")
-    seeds = {}
-    for s in NN_SEEDS:
+    per_seed = {}
+    for s in seeds:
         run = out / f"{name}_seed_{s}"
         log = (run / "log.txt").read_text()
         recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
         run_s, gt_s, launches = _done_line(run)
         val = {r["step"]: r["val_rel_err"] for r in recs}
-        if sorted(val) != list(range(0, 200, 5)) or not all(map(math.isfinite, val.values())):
+        if sorted(val) != list(range(0, steps, 5)) or not all(map(math.isfinite, val.values())):
             raise AssertionError(f"{name} seed {s}: validation steps {sorted(val)}, values "
                                  f"{list(val.values())}")
+        for r in recs if num_tsteps else ():
+            pts = r["per_time_step_error"]
+            if len(pts) != num_tsteps or not all(map(math.isfinite, pts)):
+                raise AssertionError(f"{name} seed {s} step {r['step']}: per_time_step_error "
+                                     f"has {len(pts)} entries (expected {num_tsteps} finite)")
         if warmup and "applied MAML warm-up adaptation" not in log:
             raise AssertionError(f"{name} seed {s}: no MAML warm-up in log.txt")
         if launches != len(recs):
             raise AssertionError(f"{name} seed {s}: {launches} siren_fused launches for "
                                  f"{len(recs)} validation calls")
-        seeds[s] = {"val": val, "run_s": run_s, "gt_s": gt_s, "launches": launches,
-                    "gt_solved_read": _gt_log(run),
-                    "steps_per_s": 1.0 / statistics.median(r["step_time"] for r in recs[1:])}
-    med = {f"step_{k}": statistics.median(d["val"][k] for d in seeds.values())
-           for k in (0, 100, 195)}
-    med["best"] = statistics.median(min(d["val"].values()) for d in seeds.values())
-    bar = NN_FACTOR * jax_medians["step_195"]
-    if not med["step_195"] <= bar:
-        raise AssertionError(f"{name}: step-195 median {med['step_195']} above {NN_FACTOR} x "
-                             f"the JAX package's {jax_medians['step_195']}")
-    return {"reduced": {"seeds": len(NN_SEEDS), "of": 8}, "concurrency": NN_CONCURRENCY,
-            "wall_s": wall, "median": med, "jax_median": jax_medians, "bar_step_195": bar,
-            "launches": sum(d["launches"] for d in seeds.values()),
-            "validations": NN_VALIDATIONS * len(NN_SEEDS),
-            "per_seed": {s: {"step_195": d["val"][195], "best": min(d["val"].values()),
+        per_seed[s] = {"val": val, "run_s": run_s, "gt_s": gt_s, "launches": launches,
+                       "gt_solved_read": _gt_log(run),
+                       "steps_per_s": 1.0 / statistics.median(r["step_time"] for r in recs[1:])}
+    last = steps - 5
+    med = {f"step_{k}": statistics.median(d["val"][k] for d in per_seed.values())
+           for k in (*report, last)}
+    med["best"] = statistics.median(min(d["val"].values()) for d in per_seed.values())
+    bar = NN_FACTOR * jax_medians[f"step_{last}"]
+    if not med[f"step_{last}"] <= bar:
+        raise AssertionError(f"{name}: step-{last} median {med[f'step_{last}']} above "
+                             f"{NN_FACTOR} x the JAX package's {jax_medians[f'step_{last}']}")
+    return {"reduced": {"seeds": len(seeds), "of": 8, "steps": steps, "of_steps": 200},
+            "concurrency": concurrency, "wall_s": wall, "median": med,
+            "jax_median": jax_medians, "compared_step": last, "bar": bar,
+            "launches": sum(d["launches"] for d in per_seed.values()),
+            "validations": steps // 5 * len(seeds),
+            "per_seed": {s: {f"step_{last}": d["val"][last], "best": min(d["val"].values()),
                              **{k: d[k] for k in ("run_s", "gt_s", "launches",
                                                   "gt_solved_read", "steps_per_s")}}
-                         for s, d in seeds.items()},
-            # the jobs start together (NN_CONCURRENCY >= the seeds): the
-            # sweep's wall time less its longest run, one process's start-up
-            # (interpreter, imports, CUDA context) and the sweep's own
-            "startup_s": wall - max(d["run_s"] for d in seeds.values())}
+                         for s, d in per_seed.items()},
+            # the jobs start together: the sweep's wall time less its
+            # longest run, one process's start-up (interpreter, imports,
+            # CUDA context) and the sweep's own
+            "startup_s": wall - max(d["run_s"] for d in per_seed.values())}
 
 
 def _nn_step_numbers(flags, params):
@@ -2421,6 +2551,264 @@ def phase_nn_multistart():
     return {"launches": launches}
 
 
+# --- the paper's Burgers and hyperelasticity pipelines: LEAP meta-training
+# (pipeline/leap_meta.sh) and the plain-PINN sweeps
+# (pipeline/deployment_burgers.sh, pipeline/deployment_elasticity.sh) -------
+
+# ldb3_2 and lde2_3 resumed through cli/leap_pde at their full width and
+# inner depth (10x128, 80 and 20 inner steps, bsize 8, 2048 points, their
+# 4 eval tasks): LEAP_FAMILY_STEPS outer steps in one block that ends on the
+# run's one validation, the final checkpoint, then one step resumed from it.
+# lde2_3 resumes from its latest checkpoint, the one the CLI picks; the
+# card-vs-CPU step takes its best one
+LDE_LATEST_CKPT = LDE_RUN / "checkpoint_step_47999.pickle"
+LDE_BEST_CKPT = LDE_RUN / "checkpoint_best.pickle"
+LEAP_FAMILY_STEPS = 2
+# The bar: val_rel_err at most 3x the JAX package's validation from the
+# same checkpoint on the same eval tasks, coords and ground truths (the
+# port's: host draws), by its own make_validation_fn and LEAP adaptation:
+#   env PYTHONPATH=. JAX_PLATFORMS=cpu python tests/jax_leap_family_bar.py
+# Each run's last logged val_rel_err (its metrics.jsonl) is printed beside:
+# it was taken on the JAX run's eval tasks, which the port cannot draw, and
+# on the port's 4 Burgers tasks one alone scores 4.7e-2 in JAX (PERF.md)
+JAX_LDB_SAME_TASKS_VAL = 0.013073156587779522   # ldb3_2, step 40000
+JAX_LDE_SAME_TASKS_VAL = 0.00353615521453321    # lde2_3, step 47999
+JAX_LDB_LAST_VAL = 0.002114271279424429    # ldb3_2, step 39,999
+JAX_LDE_LAST_VAL = 0.0031538025941699743   # lde2_3, step 47,999
+LEAP_FAMILY_FACTOR = 3.0
+# one LEAP step of each on the card and on the CPU from its checkpoint with
+# its Adam state, on shared host draws, at full width and 2048 points, the
+# depth cut to bsize 2 and 10 inner steps (the CPU side at full depth takes
+# minutes). The meta-gradient (from the new Adam moment) within 1e-1 of each
+# leaf's largest entry and 1e-3 of the tree's norm: under loss_in_distance
+# each increment carries d_loss, a difference of two f32 losses, so f32 is
+# far from exact on a few leaves (tests/test_torch_energy.py sets the same
+# bars for lde2_3 against JAX)
+LEAP_FAMILY_PARITY_CUTS = ["--leap.bsize=2", "--leap.inner_steps=10"]
+LEAP_GRAD_LEAF_TOL = 1e-1
+LEAP_GRAD_TREE_TOL = 1e-3
+# the two scripts' commands, their flags as they pass them (the steps come
+# from NN_FAMILY_STEPS), from their inits
+BURGERS_MAML_INIT = REPO / "results_burgers_maml" / "tpu_run1"
+LDB_INIT = REPO / "results_burgers_leap" / "ldb3_1"
+EM_INIT = REPO / "results_elasticity_maml" / "tpu_run1"
+LDE_INIT = REPO / "results_elasticity_leap" / "lde1"
+_NN_FAMILY_COMMON = ["--model.omega=30", "--model.omega0=30", "--train.optimizer=adam",
+                     "--task.bc_weight=1.0", "--task.outer_points=1024",
+                     "--task.validation_points=1024", "--train.log_every=5",
+                     "--train.val_every=5", "--train.viz_every=0",
+                     "--train.checkpoint_every=0"]
+_NN_BURGERS = ["--task.pde=td_burgers", "--task.domain.xmin=0.0", "--task.max_reynolds=100",
+               "--task.num_tsteps=201", "--task.vary_source=false",
+               "--solver.ground_truth_resolution=512", *_NN_FAMILY_COMMON]
+NN_BURGERS_MAML_FLAGS = _NN_BURGERS + ["--model.num_layers=8", "--model.layer_size=64",
+                                       "--maml.outer_lr=1e-5", "--maml.grad_clip=100",
+                                       "--maml.inner_steps=5", "--maml.inner_lr=1e-4"]
+NN_BURGERS_LEAP_FLAGS = _NN_BURGERS + ["--task.vary_bc=false", "--model.num_layers=10",
+                                       "--model.layer_size=128", "--maml.outer_lr=1e-5"]
+_NN_ELAS = ["--task.pde=hyper_elasticity", "--task.domain.xmin=0.0", "--task.domain.ymin=0.0",
+            "--task.max_holes=5", "--task.vary_source=false", "--task.vary_bc=false",
+            *_NN_FAMILY_COMMON]
+NN_ELAS_MAML_FLAGS = _NN_ELAS + ["--task.max_hole_size=1.0",
+                                 "--solver.ground_truth_resolution=32",
+                                 "--model.num_layers=8", "--model.layer_size=64",
+                                 "--maml.outer_lr=1e-5", "--maml.grad_clip=100",
+                                 "--maml.inner_steps=5", "--maml.inner_lr=1e-5"]
+NN_ELAS_LEAP_FLAGS = _NN_ELAS + ["--task.max_hole_size=0.5",
+                                 "--solver.ground_truth_resolution=48",
+                                 "--model.num_layers=10", "--model.layer_size=128",
+                                 "--maml.outer_lr=5e-6"]
+# cut for the smoke's time, the steps first, then the seeds: 100 of the
+# scripts' 200 steps, compared with the JAX medians at step 95, on 2 of
+# their 8 seeds (the runs are deterministic: the 200-step runs of 4 seeds
+# gave the same medians to 4 digits in two calls)
+NN_FAMILY_STEPS = 100
+NN_FAMILY_SEEDS = (1, 2)
+NN_FAMILY_REPORT = (0,)
+# Median over the 8 seeds of val_rel_err at steps 0, 95 and 195 and of each
+# seed's best, from the JAX package's runs in results_burgers_deploy/ and
+# results_elasticity_deploy/ (deploy_{maml,leap}_seed_{1..8}/metrics.jsonl;
+# their log.txt names the inits they loaded: bm6, ldb3_2, em5 and lde1_1)
+JAX_NN_BURGERS_MAML = {"step_0": 0.36352650821208954, "step_95": 6.968272646190599e-05,
+                       "step_195": 6.590400153072551e-05, "best": 4.374263698991854e-05}
+JAX_NN_BURGERS_LEAP = {"step_0": 0.28711598366498947, "step_95": 0.000805711024440825,
+                       "step_195": 0.000432249580626376, "best": 0.00030512696685036644}
+JAX_NN_ELAS_MAML = {"step_0": 0.0063771759159862995, "step_95": 0.007547663291916251,
+                    "step_195": 0.007870134664699435, "best": 0.005118096945807338}
+JAX_NN_ELAS_LEAP = {"step_0": 0.0039778961800038815, "step_95": 0.0019869357347488403,
+                    "step_195": 0.00209752784576267, "best": 0.0012615617597475648}
+
+
+def phase_leap_family_parity():
+    """One LEAP outer step from ldb3_2's checkpoint_step_40000 and from
+    lde2_3's best checkpoint, each with its Adam state, on the card and on
+    the CPU on shared host draws (TF32 off): params within TRAIN_LEAF_TOL of
+    each leaf's scale, meta-losses within TRAIN_LOSS_RTOL, the meta-gradient
+    within LEAP_GRAD_LEAF_TOL of each leaf's largest entry and
+    LEAP_GRAD_TREE_TOL of its norm."""
+    t0 = time.perf_counter()
+    runs = {}
+    for name, run, ckpt in (("ldb3_2", LDB_RUN, LDB_CKPT), ("lde2_3", LDE_RUN, LDE_BEST_CKPT)):
+        cfg = parse_overrides(load_run_config(str(run)), LEAP_FAMILY_PARITY_CUTS)
+        ck = checkpoints.load_checkpoint(str(ckpt))
+        state = (params_from_numpy(ck["params"]),
+                 optimizers.from_jax_state(cfg.train.optimizer, ck["opt_state"]))
+        rows, t_card, t_cpu = _leap_train_both(cfg, 1, state)
+        r = rows[0]
+        if not (r["meta_grad_leaf_err"] <= LEAP_GRAD_LEAF_TOL
+                and r["meta_grad_tree_err"] <= LEAP_GRAD_TREE_TOL):
+            raise AssertionError(f"{name}: meta-gradient card vs CPU beyond "
+                                 f"{LEAP_GRAD_LEAF_TOL} of a leaf's largest entry or "
+                                 f"{LEAP_GRAD_TREE_TOL} of its norm: {r}")
+        runs[name] = {"checkpoint": str(ckpt.relative_to(REPO)), "step": int(ck["step"]),
+                      "width": f"{cfg.model.num_layers}x{cfg.model.layer_size}",
+                      "points": cfg.task.inner_points, "card_s": t_card, "cpu_s": t_cpu, **r}
+    emit("leap_family_parity", t0, reduced=LEAP_FAMILY_PARITY_CUTS, leaf_tol=TRAIN_LEAF_TOL,
+         loss_rtol=TRAIN_LOSS_RTOL, grad_leaf_tol=LEAP_GRAD_LEAF_TOL,
+         grad_tree_tol=LEAP_GRAD_TREE_TOL, runs=runs)
+
+
+def _leap_family_train(name, run, ckpt, jax_same, jax_last, num_tsteps=None):
+    """cli/leap_pde --from_run on a copy of `run` (its config.json and
+    `ckpt`), resumed from `ckpt` with its Adam state at full width and
+    depth: LEAP_FAMILY_STEPS steps and one validation through the kernel
+    against the ground truth of the config's resolution, the run's files,
+    metrics keys and final checkpoint held to the JAX run's; a resumed run
+    that solves nothing; then one timed step and one profiled."""
+    t0 = time.perf_counter()
+    start = int(checkpoints.load_checkpoint(str(ckpt))["step"]) + 1
+    end = start + LEAP_FAMILY_STEPS
+    cuts = {"train.outer_steps": end, "train.steps_per_call": LEAP_FAMILY_STEPS,
+            "train.val_every": end, "train.log_every": end, "train.checkpoint_every": 0,
+            "model.use_pallas_inference": "true"}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = _run_copy(tmp, run, ("config.json", ckpt.name))
+        out = Path(tmp) / "out"
+        args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in cuts.items()),
+                f"--train.out_dir={out}"]
+        siren_fused.siren_apply_fused_batched.launches = 0
+        leap_pde.main(args + ["--train.expt_name=smoke", f"--train.load_model_from_expt={src}"])
+        torch.cuda.synchronize()
+        launches = siren_fused.siren_apply_fused_batched.launches
+        run_dir = out / "smoke"
+        for f in ("log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
+                  f"checkpoint_step_{end}.pickle"):
+            if not (run_dir / f).exists():
+                raise AssertionError(f"{name}: the LEAP training run wrote no {f}")
+        if f"resuming optimizer state at step {start}" not in (run_dir / "log.txt").read_text():
+            raise AssertionError(f"{name}: the run did not resume {ckpt.name}'s Adam state")
+        recs = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        jax_keys = sorted(json.loads((run / "metrics.jsonl").read_text().splitlines()[0]))
+        if [r["step"] for r in recs] != [end - 1] or sorted(recs[0]) != jax_keys:
+            raise AssertionError(f"{name}: records at {[r['step'] for r in recs]} with keys "
+                                 f"{sorted(recs[0]) if recs else []}; the JAX run's {jax_keys}")
+        r = recs[0]
+        bar = LEAP_FAMILY_FACTOR * jax_same
+        for k in ("meta_loss", "val_meta_loss", "val_rel_err", "val_mse"):
+            if not math.isfinite(r[k]):
+                raise AssertionError(f"{name} step {r['step']}: {k} = {r[k]}")
+        if not all(map(math.isfinite, r["per_step_losses"])):
+            raise AssertionError(f"{name}: per_step_losses {r['per_step_losses']}")
+        if not r["val_rel_err"] <= bar:
+            raise AssertionError(f"{name}: val_rel_err {r['val_rel_err']} above {bar} "
+                                 f"({LEAP_FAMILY_FACTOR} x the JAX package's {jax_same} on "
+                                 "the same eval tasks)")
+        if num_tsteps is not None and (len(r["per_time_step_error"]) != num_tsteps or not all(
+                map(math.isfinite, r["per_time_step_error"]))):
+            raise AssertionError(f"{name}: per_time_step_error has "
+                                 f"{len(r['per_time_step_error'])} entries, not {num_tsteps} "
+                                 "finite")
+        if launches != len(recs):
+            raise AssertionError(f"{name}: siren_fused launched {launches} times for "
+                                 f"{len(recs)} validation calls")
+        ckpt_keys = _check_final_checkpoint(run_dir / f"checkpoint_step_{end}.pickle", ckpt,
+                                            keys=("params",))
+        first = _gt_log(run_dir)
+        t1 = time.perf_counter()
+        leap_pde.main(args + ["--train.expt_name=resumed",
+                              f"--train.load_model_from_expt={run_dir}",
+                              f"--train.outer_steps={end + 1}"])
+        resumed_s = time.perf_counter() - t1
+        resumed = _gt_log(out / "resumed")
+        if f"resuming optimizer state at step {end}" not in (
+                out / "resumed" / "log.txt").read_text():
+            raise AssertionError(f"{name}: the resumed run did not take the port's checkpoint")
+        final = checkpoints.load_checkpoint(str(run_dir / f"checkpoint_step_{end}.pickle"))
+    cfg = load_run_config(str(run))
+    n_eval = cfg.task.n_eval
+    if first != (n_eval, 0) or resumed != (0, n_eval):
+        raise AssertionError(f"{name}: ground truth (solved, read) {first} then {resumed}")
+    bench = _step_numbers(cfg, leap_driver.build(cfg, "cuda"),
+                          (params_from_numpy(final["params"], "cuda"),
+                           params_from_numpy(final["torch_opt_state"], "cuda", dtype=None)),
+                          lambda o: (o[:2], o[2][:, -1].mean()), timed=1)
+    row = {"launches": launches, "validations": len(recs), "val_rel_err": r["val_rel_err"],
+           "val_rel_err_median": r["val_rel_err_median"], "bar": bar,
+           "meta_loss": r["meta_loss"], "deployment_time": r["deployment_time"],
+           "step_time": r["step_time"], "gt_solved_read": first,
+           "resumed_gt_solved_read": resumed, "resumed_s": resumed_s, **bench}
+    emit(name, t0, reduced=cuts, resumed_from=str(ckpt.relative_to(REPO)),
+         width=f"{cfg.model.num_layers}x{cfg.model.layer_size}", bsize=cfg.leap.bsize,
+         inner_steps=cfg.leap.inner_steps, points=cfg.task.inner_points, n_eval=n_eval,
+         ground_truth_resolution=cfg.solver.ground_truth_resolution,
+         jax_same_tasks_val_rel_err=jax_same, jax_last_val_rel_err=jax_last,
+         ratio_to_jax_last=r["val_rel_err"] / jax_last, checkpoint_keys=ckpt_keys,
+         per_time_step_error_max=(max(r["per_time_step_error"]) if num_tsteps else None),
+         **row)
+    return row
+
+
+def phase_leap_burgers_train():
+    return _leap_family_train("leap_burgers_train", LDB_RUN, LDB_CKPT, JAX_LDB_SAME_TASKS_VAL,
+                              JAX_LDB_LAST_VAL,
+                              num_tsteps=load_run_config(str(LDB_RUN)).task.num_tsteps)
+
+
+def phase_leap_elasticity_train():
+    return _leap_family_train("leap_elasticity_train", LDE_RUN, LDE_LATEST_CKPT,
+                              JAX_LDE_SAME_TASKS_VAL, JAX_LDE_LAST_VAL)
+
+
+def _nn_family(name, sweeps):
+    """Both commands of one script through cli/sweep (sweeps: (expt name,
+    driver, flags, init run, its checkpoint, JAX medians, warm-up)), then
+    each command's fine-tune step alone on the card."""
+    t0 = time.perf_counter()
+    rows = {}
+    for expt, driver, flags, init, ckpt, jax_med, warm in sweeps:
+        rows[expt] = _nn_sweep(
+            expt, driver, flags, init, jax_med, warm, seeds=NN_FAMILY_SEEDS,
+            steps=NN_FAMILY_STEPS, report=NN_FAMILY_REPORT,
+            num_tsteps=201 if "--task.pde=td_burgers" in flags else None)
+        rows[expt]["step"] = _nn_step_numbers(flags, _nn_state(ckpt, "cuda"))
+    emit(name, t0, **rows)
+    return rows
+
+
+def phase_nn_deploy_burgers():
+    """pipeline/deployment_burgers.sh's two commands through cli/sweep:
+    nn_pde_maml from results_burgers_maml/tpu_run1 (8x64, the MAML warm-up)
+    and nn_pde from results_burgers_leap/ldb3_1 (10x128), FV ground truth
+    at 512 x 201 through the shared cache, per-timestep validation."""
+    return _nn_family("nn_deploy_burgers", (
+        ("burgers_maml", "nn_pde_maml", NN_BURGERS_MAML_FLAGS, BURGERS_MAML_INIT,
+         BURGERS_MAML_INIT / "checkpoint_step_60001.pickle", JAX_NN_BURGERS_MAML, True),
+        ("burgers_leap", "nn_pde", NN_BURGERS_LEAP_FLAGS, LDB_INIT,
+         LDB_INIT / "checkpoint_step_19999.pickle", JAX_NN_BURGERS_LEAP, False)))
+
+
+def phase_nn_deploy_elasticity():
+    """pipeline/deployment_elasticity.sh's two commands through cli/sweep:
+    nn_pde_maml from results_elasticity_maml/tpu_run1 (8x64, ground truth
+    at 32, max_hole_size 1.0) and nn_pde from results_elasticity_leap/lde1
+    (10x128, ground truth at 48, 0.5), the mirror-symmetric validation."""
+    return _nn_family("nn_deploy_elasticity", (
+        ("elasticity_maml", "nn_pde_maml", NN_ELAS_MAML_FLAGS, EM_INIT,
+         EM_INIT / "checkpoint_step_60001.pickle", JAX_NN_ELAS_MAML, True),
+        ("elasticity_leap", "nn_pde", NN_ELAS_LEAP_FLAGS, LDE_INIT,
+         LDE_INIT / "checkpoint_step_27999.pickle", JAX_NN_ELAS_LEAP, False)))
+
+
 def _baseline(tmp, name, args):
     """cli/solver_baseline into `tmp`; (its rows, its reference seconds a task)."""
     rows = solver_baseline.main(["--task.pde=poisson", f"--train.out_dir={tmp}",
@@ -2437,7 +2825,7 @@ def phase_solver_baseline():
     JAX package's on the same tasks (the committed JAX sweep's ratio
     printed beside); then cli/gt_convergence (Poisson, one task
     at 4 and 8 against 16) on the card and, in a process of its own started
-    first, on the CPU: rel_mse within BASELINE_PARITY_RTOL."""
+    first, on the CPU: sqrt(rel_mse) within BASELINE_PARITY_RMS_TOL."""
     t0 = time.perf_counter()
     conv_args = ["--task.pde=poisson", f"--ref_resolution={BASELINE_PARITY_REF}",
                  "--resolutions=" + ",".join(map(str, BASELINE_PARITY_RESOLUTIONS)),
@@ -2468,15 +2856,17 @@ def phase_solver_baseline():
              for r in BASELINE_RESOLUTIONS}
     rel = {a["resolution"]: abs(a["rel_mse"] - b["rel_mse"]) / b["rel_mse"]
            for a, b in zip(card, cpu_rows)}
+    rms = {a["resolution"]: abs(math.sqrt(a["rel_mse"]) - math.sqrt(b["rel_mse"]))
+           for a, b in zip(card, cpu_rows)}
     if not (written and all(a > b for a, b in zip(mse, mse[1:]))):
         raise AssertionError(f"solver_baseline: rel_mse {mse} not falling, or no JSON written")
     if not all(1 / BASELINE_FACTOR <= q <= BASELINE_FACTOR for q in ratio.values()):
         raise AssertionError(f"solver_baseline: rel_mse / the JAX package's on the same tasks "
                              f"{ratio}, beyond {BASELINE_FACTOR}x")
-    if len(rel) != len(BASELINE_PARITY_RESOLUTIONS) or not max(rel.values()) <= \
-            BASELINE_PARITY_RTOL:
-        raise AssertionError(f"gt_convergence: card vs CPU rel_mse {rel} beyond "
-                             f"{BASELINE_PARITY_RTOL}")
+    if len(rms) != len(BASELINE_PARITY_RESOLUTIONS) or not max(rms.values()) <= \
+            BASELINE_PARITY_RMS_TOL:
+        raise AssertionError(f"gt_convergence: card vs CPU sqrt(rel_mse) {rms} beyond "
+                             f"{BASELINE_PARITY_RMS_TOL}")
     emit("solver_baseline", t0, tasks=BASELINE_N_EVAL, reference_resolution=BASELINE_REF,
          reference_s_per_task=ref_s, rows=rows, jax_same_tasks=JAX_SAME_TASKS_REL_MSE,
          ratio_to_jax_same_tasks=ratio, factor=BASELINE_FACTOR,
@@ -2485,8 +2875,8 @@ def phase_solver_baseline():
                              for r in BASELINE_RESOLUTIONS},
          committed_note="baselines/poisson: 16 other tasks, reference at 64, means carried "
          "by a few hard tasks; set beside, not held to",
-         gt_convergence={"card": card, "cpu": cpu_rows, "rel": rel,
-                         "rtol": BASELINE_PARITY_RTOL, "card_s": conv_s})
+         gt_convergence={"card": card, "cpu": cpu_rows, "rel": rel, "rms_diff": rms,
+                         "rms_tol": BASELINE_PARITY_RMS_TOL, "card_s": conv_s})
 
 
 # --- the parallel layer: sharded meta-training over torch.distributed -----
@@ -2500,7 +2890,11 @@ FLAGSHIP_FLAGS = ["--task.inner_points=1024", "--task.outer_points=1024",
                   "--model.compute_dtype=bfloat16", "--maml.bsize=16", "--maml.inner_steps=5",
                   "--maml.inner_lr=1e-4", "--maml.outer_lr=1e-5", "--maml.inner_grad_clip=100",
                   "--maml.grad_clip=100", "--maml.unroll=5", "--train.remat_inner_steps=false"]
-MESH_FLAGSHIP_MESHES = "2x1,1x2,2x2"  # dp = 2, pt = 2, 2 x 2 (f32); bf16 on 2 x 2
+# the flagship on the 2 x 2 mesh, f32 and bf16 (2 x 1 and 1 x 2 cut in PR 15
+# to pay for the Burgers and hyperelasticity pipelines: the 2 x 2 mesh runs
+# both the task and the point collectives, and (c) keeps LEAP's one-axis
+# meshes; each flagship mesh took 45-50 s on one H100)
+MESH_FLAGSHIP_MESHES = "2x2"
 MESH_P3D_RANKS = 2
 # pipeline/maml_meta_3d.sh's bsize 256 on 8 task shards, cut to 32 on 2
 MESH_P3D_FLAGS = ["--maml.bsize=32", f"--mesh.n_task_shards={MESH_P3D_RANKS}"]
@@ -2563,8 +2957,8 @@ def phase_mesh_train():
     """The parallel layer on the card, ranks in processes of their own
     (_spawn; gloo when they share the card, nccl when each has its own):
     (a) bench.py's flagship at full width through cli/distributed_smoke,
-    one outer step on dp = 2, pt = 2 and 2 x 2 in f32 and on 2 x 2 in bf16
-    against the one-process step on the same draws and card (meta-gradient
+    one outer step on the 2 x 2 mesh in f32 and in bf16 against the
+    one-process step on the same draws and card (meta-gradient
     within 1e-4 of each leaf's scale, losses rtol 1e-4; bf16 1e-2); (b)
     pipeline/maml_meta_3d.sh's config at full width (5x128, 2048 points)
     through the launcher and cli/maml_pde on dp = 2 at bsize 32: rank 0
@@ -2584,6 +2978,7 @@ def phase_mesh_train():
     parts["flagship_bf16"] = _mesh_rows(_smoke("--meshes=2x2", *FLAGSHIP_FLAGS))
     for name in ("flagship_f32", "flagship_bf16"):
         parts[name]["reduced"] = {"outer steps": "1 compared, 2 timed, 1 profiled"}
+    parts["flagship_f32"]["reduced"]["meshes"] = "2x1,1x2,2x2 -> 2x2"
     seconds["a"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -2871,6 +3266,11 @@ PHASES = {
     "nn_multistart": phase_nn_multistart, "solver_baseline": phase_solver_baseline,
     "mesh_train": phase_mesh_train, "elasticity_cascade": phase_elasticity_cascade,
     "pde_check": phase_pde_check, "roofline": phase_roofline, "tools": phase_tools,
+    "leap_family_parity": phase_leap_family_parity,
+    "leap_burgers_train": phase_leap_burgers_train,
+    "leap_elasticity_train": phase_leap_elasticity_train,
+    "nn_deploy_burgers": phase_nn_deploy_burgers,
+    "nn_deploy_elasticity": phase_nn_deploy_elasticity,
 }
 
 
@@ -2915,6 +3315,11 @@ def main(argv):
     nn_maml = phase_nn_deploy_maml()
     nn_leap = phase_nn_deploy_leap()
     nn_ms = phase_nn_multistart()
+    phase_leap_family_parity()
+    leap_burgers_train = phase_leap_burgers_train()
+    leap_elasticity_train = phase_leap_elasticity_train()
+    nn_burgers = phase_nn_deploy_burgers()
+    nn_elasticity = phase_nn_deploy_elasticity()
     phase_solver_baseline()
     mesh = phase_mesh_train()
     cascade = phase_elasticity_cascade()
@@ -2981,6 +3386,14 @@ def main(argv):
            for case, row in (("nn_maml", "main_path"), ("nn_leap", "nn_leap_path"))},
         # the sharded poisson3d run (rank 0's validation calls)
         "mesh_train_launches": mesh["launches"],
+        # the paper's Burgers and hyperelasticity pipelines (PR 15)
+        "leap_burgers_train_launches": leap_burgers_train["launches"],
+        "leap_elasticity_train_launches": leap_elasticity_train["launches"],
+        **{f"{expt}_launches": row["launches"]
+           for rows in (nn_burgers, nn_elasticity) for expt, row in rows.items()},
+        **{f"at_{case[:-5]}_shape": {k: kern[case][k] for k in (
+            "tasks", "n", "max_abs_err", *timing_keys, "resident", "smem_bytes",
+            "blocks_per_sm", "n_sm")} for case in FAMILY_CASES},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"training": {"train": train,
@@ -2996,7 +3409,11 @@ def main(argv):
                                    "poisson3d_train": poisson3d_train,
                                    "nn_deploy_maml": nn_maml["step"],
                                    "nn_deploy_leap": nn_leap["step"],
-                                   "mesh_train": mesh},
+                                   "mesh_train": mesh,
+                                   "leap_burgers_train": leap_burgers_train,
+                                   "leap_elasticity_train": leap_elasticity_train,
+                                   **{expt: row["step"] for rows in (nn_burgers, nn_elasticity)
+                                      for expt, row in rows.items()}},
                       "ground_truth_mg": gt_mg, "elasticity_cascade": cascade,
                       "pde_check": pde_checks, "roofline": roof, "tools": tools,
                       "total_s": time.perf_counter() - T_START}), flush=True)

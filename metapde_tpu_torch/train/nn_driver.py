@@ -177,21 +177,29 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
         return torch.where(torch.isnan(scores), torch.full_like(scores, math.inf), scores)
 
     def get_grad_norms(batch, params):
-        """{term: (value, grad norm)} of each loss term's batch mean."""
+        """{term: (value, grad norm)} of each loss term's batch mean. A leaf
+        a term does not reach has a zero gradient, as in JAX (a
+        hyperelasticity edge term skips one output's last-layer leaves)."""
         leaves, p = _leaves(params)
         out = {}
         with torch.enable_grad():
             _, aux = _losses(batch, p)
             for k, v in aux.items():
-                g = torch.autograd.grad(v, leaves, retain_graph=True)
-                out[k] = (v.detach(), global_norm(list(g)))
+                g = torch.autograd.grad(v, leaves, retain_graph=True, allow_unused=True)
+                g = [torch.zeros_like(x) if d is None else d for x, d in zip(leaves, g)]
+                out[k] = (v.detach(), global_norm(g))
         return out
 
     def make_coef_func(gens, model, task_params, coords):
-        """The model itself at coords [1, V, d] of the eval task: one
-        inference call (no adaptation)."""
+        """The model itself at coords [1, V, d] of the eval task, or [1, S,
+        V, d] (S coordinate sets, e.g. hyperelasticity's mirror): one
+        inference call (no adaptation), the sets flattened into its task
+        axis."""
+        lead = coords.shape[:-2]
         with torch.no_grad():
-            return field.apply_inference_batched(model, coords, shared=True)
+            out = field.apply_inference_batched(model, coords.reshape(-1, *coords.shape[-2:]),
+                                                shared=True)
+        return out.reshape(*lead, *out.shape[1:])
 
     def maml_warmup(gen, params, inner_lrs, batch=None):
         """One learned-LR rollout from a meta init on the pinned task: SGD at
