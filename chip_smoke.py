@@ -51,7 +51,9 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               value is finite, and the k = 5 median relative error beats
               k = 0 and is within 3x of the JAX package's
   5 ground_truth_mg  one task solved at resolution 32 (multigrid
-              preconditioner) on the card and on the CPU, each u_grid
+              preconditioner) on the card and on the CPU (a process of its
+              own with two threads, started at the run's start: the phase
+              runs after train_bench, when it is done), each u_grid
               within 3x the JAX package's own f32 distance (1.836e-4 of the
               grid's largest |value|) of the float64 solve on the card (the
               Newton target sits at the f32 floor, so two f32 solves are
@@ -67,7 +69,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               gt_cache_torch/: the same launch count and the same bars, the
               JAX package's CPU median taken at resolution 32; then the same
               deployment with the bf16 chain (deploy_mg_bf16) from the cached
-              ground truths: no Newton step, 12 launches of the f32 kernel,
+              ground truths: no Newton step, 8 launches of the f32 kernel,
               the same bars, and its k = 0 errors those of the f32 pass
               within 1e-5
   7 train_parity  a tiny meta-training (2 layers of 32, bsize 4, 2 inner
@@ -102,8 +104,8 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               the CPU on the same inputs: finite, within 1e-4 of each
               panel's largest |value|
  11 train_bench  cli/train_bench on bench.py's flagship config, bf16 as
-              bench.py runs it, then the f32 variant (3 timed blocks of 2
-              outer steps each, one profiled block of 2; cuts in `reduced`),
+              bench.py runs it, then the f32 variant (1 timed block of 2
+              outer steps, one profiled block of 2; cuts in `reduced`),
               with the form of the bf16 products that ran
  12 leap_parity  a tiny LEAP meta-training (2 layers of 32, bsize 4, 3
               inner steps, 128 points, 3 outer steps) on the card and on the
@@ -122,7 +124,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               launch), finite values, the k = 60 median below k = 0 and
               within 3x of the JAX package's CPU median; then the same with
               --deploy.optimizer=adam at k = 0, 50, 200 from the cached
-              ground truths (leap_deploy_adam): 9 launches, no Newton step,
+              ground truths (leap_deploy_adam): 6 launches, no Newton step,
               the same kind of bars at k = 200
  15 leap_train  cli/leap_pde on a copy of lp2_4's config.json at its full
               width, cut to 2 outer steps in one block of 20 of its 60
@@ -144,7 +146,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
  18 burgers_deploy  cli/deploy_bench --algo=maml on a copy of
               results_burgers_maml/bm7_5 (8x64, best checkpoint, 8 fresh
               tasks, k = 0, 1, 2, 5, FV ground truth at 512 through
-              gt_cache_torch/): 12 launches, the k = 5 median below k = 0 and
+              gt_cache_torch/): 8 launches, the k = 5 median below k = 0 and
               within 3x of the JAX package's CPU median
  19 burgers_train  cli/maml_pde on a copy of bm7_5's config at its full width,
               resumed from its checkpoint_step_500001.pickle with both Adam
@@ -155,7 +157,7 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               unprofiled steps and one profiled
  20 leap_burgers_deploy  cli/deploy_bench --algo=leap on a copy of
               results_burgers_leap/ldb3_2 (10x128, weights streamed through
-              shared memory): k = 0, 5, 20, 80, 12 launches, the k = 80 median
+              shared memory): k = 0, 5, 20, 80, 8 launches, the k = 80 median
               below k = 0 and within 3x of the JAX package's CPU median
  21 elasticity_gt  two of em7_9's deployment tasks through the sparse-direct
               neo-Hookean solve on the host (float64, scipy's LU, the
@@ -171,13 +173,13 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
  23 elasticity_deploy  cli/deploy_bench --algo=maml on a copy of
               results_elasticity_maml/em7_9 (8x64, two outputs, best
               checkpoint, 8 fresh tasks, k = 0, 1, 2, 5, --energy_audit):
-              12 launches (each validation call evaluates every task and its
+              8 launches (each validation call evaluates every task and its
               mirror in one launch), finite values and audit columns, the
               k = 5 median below k = 0 and within 3x of the JAX package's CPU
               median
  24 leap_elasticity_deploy  cli/deploy_bench --algo=leap on a copy of
               results_elasticity_leap/lde2_3 (10x128, two outputs, weights
-              streamed, 2048 inner points): k = 0, 5, 20, 40, 12 launches,
+              streamed, 2048 inner points): k = 0, 5, 20, 40, 8 launches,
               the k = 40 median below k = 0 and within 3x of the JAX package's
               CPU median
  25 elasticity_train  cli/maml_pde on a copy of em7_9's config at its full
@@ -200,11 +202,11 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
  28 steady_deploy  cli/deploy_bench --algo=maml on a copy of
               results_sburgers_maml/sbi10_2 (5x64, two outputs, best
               checkpoint, 4 fresh tasks, k = 0, 10, 80 (20 and 40 cut),
-              ground truth at resolution 48): 9 launches, the k = 80 median
+              ground truth at resolution 48): 6 launches, the k = 80 median
               below k = 0
               and within 3x of the JAX package's CPU median; then
               --deploy.optimizer=adam at k = 0, 50 from the cached ground
-              truths (steady_deploy_adam): 6 launches, no Newton step, the
+              truths (steady_deploy_adam): 4 launches, no Newton step, the
               same bars at k = 50
  29 steady_train  cli/maml_pde on a copy of sbi10_2's config at its full
               width (bsize 8, 10 inner steps, remat, 1024 points), resumed
@@ -232,8 +234,8 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
  33 nn_deploy_maml  the script's first command unchanged in width and depth
               (nn_pde_maml from tpu_run6b: the warm-up, then 200 Adam steps
               at bsize 16 on 1024 points, validation every 5 steps against
-              ground truth at 32) through cli/sweep on 4 seeds (the script's
-              8 cut to 4, in `reduced`), 4 jobs at once on the one card,
+              ground truth at 32) through cli/sweep on 2 seeds (the script's
+              8 cut to 2, in `reduced`), 2 jobs at once on the one card,
               with the kernel on: "applied MAML warm-up adaptation" in each
               log.txt, one launch per validation call in each job (each job
               counts its own and writes them in log.txt's closing line),
@@ -301,7 +303,9 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               where matplotlib is installed, else its name is None
  42 leap_family_parity  one LEAP outer step from ldb3_2's
               checkpoint_step_40000 and from lde2_3's best checkpoint, each
-              with its Adam state, at full width and 2048 points (bsize 2,
+              with its Adam state, from sbi10_2's params (steady Burgers,
+              5x64, 1024 points) and a fresh poisson3d init (5x128), each
+              with a fresh Adam state, at full width and points (bsize 2,
               10 inner steps: cuts in `reduced`), on the card and on the CPU
               on shared host draws: params within 1e-4 of each leaf's scale,
               meta-losses rtol 1e-3, the meta-gradient within 1e-1 of each
@@ -327,15 +331,34 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               results_burgers_leap/ldb3_1 at 10x128; 1024 points,
               validation every 5 steps against the FV ground truth at 512),
               cut to 100 of the 200 Adam steps and 2 of the 8 seeds (in
-              `reduced`), the jobs at once: one launch per validation call,
+              `reduced`), the jobs of both commands at once: one launch per
+              validation call,
               201 finite per-timestep errors in every row, the median over
               the seeds of the step-95 val_rel_err within 3x the JAX
-              package's 8-seed median; then each command's step alone on
+              package's 8-seed median of 100-step runs from the same init
+              (tests/jax_nn_sweep_bar.py; the committed runs' cross-init
+              medians printed beside); then each command's step alone on
               the card
  46 nn_deploy_elasticity  the same for pipeline/deployment_elasticity.sh
               (tpu_run1 at 8x64, ground truth at 32, max_hole_size 1.0;
               lde1 at 10x128, ground truth at 48, 0.5; the task and its
               mirror in one launch a validation)
+ 47 solver_baseline_burgers  pipeline/baseline.sh's TD-Burgers command
+              through cli/solver_baseline (FV reference at 512 in float64,
+              8 tasks, 9 output times, resolutions 16 to 256), then the
+              num_tsteps axis (5, 9, 33) at 64 on one task, also on the CPU:
+              rel_mse falling with resolution, each within 1e-2 relative of
+              the JAX package's on the same tasks
+              (tests/jax_solver_sweep_bar.py), card vs CPU by sqrt(rel_mse)
+              within 1e-5; the committed JAX sweeps printed beside
+ 48 solver_baseline_elasticity  the same for its hyperelasticity command
+              (reference at 64; 1 task at 8, 16, 32 and the boundary_cap
+              axis 8, 192 at 8: cuts in `reduced`), with the host solve's
+              seconds and the card's evaluate_p1 milliseconds apart
+ 49 gt_convergence_steady  cli/gt_convergence on one steady Burgers task
+              at 16, 24, 32 against its float64 reference at 48 (cuts in
+              `reduced`), on the card and on the CPU, with the bars of 47;
+              baselines/steady_burgers/gt_convergence.jsonl beside
 Then a JSON line with every kernel's numbers (with the training and LEAP
 paths' launches), one with the training numbers and the total seconds, and
 last the ok line. A failed check raises: the exit code is then not 0. A
@@ -395,6 +418,10 @@ from metapde_tpu_torch.utils.trees import tree_leaves, tree_map
 # the watchdog: well inside the 1200 s a caller may give the whole run
 WATCHDOG_S = 1080
 _CHILDREN = []
+# _spawn'ed processes that a later phase still waits on: started early so
+# that their CPU work runs beside the card's phases (_kill_children spares
+# them until their phase has read them)
+_AWAITED = []
 
 
 def _spawn(cmd, **kwargs):
@@ -423,34 +450,43 @@ def _descendants(pid):
     return out
 
 
-def _kill_children():
+def _kill_children(keep=None):
     """SIGKILL every process below this one (the script is their
     subreaper, so the ranks that the launcher and cli/distributed_smoke
     start in sessions of their own stay below it when their parent dies)
-    and the process group of every _spawn'ed process, and reap."""
+    and the process group of every _spawn'ed process, and reap; `keep`
+    (_AWAITED by default; () at exit, on the watchdog and on SIGTERM) are
+    spared with what they started (orphans are then reaped at a later
+    call)."""
+    keep = tuple(_AWAITED) if keep is None else keep
+    spared = {pid for proc in keep for pid in (proc.pid, *_descendants(proc.pid))}
     for pid in _descendants(os.getpid()):
-        with contextlib.suppress(ProcessLookupError, PermissionError):
-            os.kill(pid, signal.SIGKILL)
+        if pid not in spared:
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.kill(pid, signal.SIGKILL)
     for proc in _CHILDREN:
+        if proc in keep:
+            continue
         with contextlib.suppress(ProcessLookupError, PermissionError):
             os.killpg(proc.pid, signal.SIGKILL)
         with contextlib.suppress(Exception):
             proc.wait(timeout=10)
-    # orphans reparented to this subreaper
+    # orphans reparented to this subreaper (not while a kept process could
+    # be reaped before its own wait reads its exit code)
     with contextlib.suppress(ChildProcessError):
-        while os.waitpid(-1, os.WNOHANG)[0]:
+        while not keep and os.waitpid(-1, os.WNOHANG)[0]:
             pass
 
 
 def _on_timeout():
     sys.stderr.write(f"chip_smoke: watchdog at {WATCHDOG_S} s, every thread's stack:\n")
     faulthandler.dump_traceback(all_threads=True)
-    _kill_children()
+    _kill_children(keep=())
     os._exit(1)
 
 
 def _on_sigterm(signum, frame):
-    _kill_children()
+    _kill_children(keep=())
     os._exit(128 + signum)
 
 
@@ -466,7 +502,7 @@ def _start_watchdog():
     timer.start()
     faulthandler.dump_traceback_later(WATCHDOG_S + 60, exit=True)
     signal.signal(signal.SIGTERM, _on_sigterm)
-    atexit.register(_kill_children)
+    atexit.register(_kill_children, ())
 
 REPO = Path(__file__).resolve().parent
 RUN_DIR = REPO / "results_poisson_maml" / "p30k_f32_s1"
@@ -493,9 +529,10 @@ K5_FACTOR = 3.0
 # different iterates inside the Newton tolerance, and sums run in other orders
 PARITY_RTOL = 1e-2
 DEPLOY_KS = (0, 1, 2, 5)
-# timed calls a value of k after its warm-up (deploy_bench --repeats): 2,
-# cut from the CLI's 3 for the smoke's time; time_per_task_s is their mean
-DEPLOY_REPEATS = 2
+# timed calls a value of k after its warm-up (deploy_bench --repeats): 1,
+# cut from the CLI's 3 for the smoke's time (to 2, then to 1 to pay for the
+# classical-solver phases); time_per_task_s is that call's
+DEPLOY_REPEATS = 1
 # card against CPU on the same training draws (TF32 off on the card)
 TRAIN_LEAF_TOL = 1e-4   # of each leaf's scale, params and inner LRs
 TRAIN_LOSS_RTOL = 1e-3  # meta-losses
@@ -663,7 +700,9 @@ NN_MAML_FLAGS = NN_COMMON + ["--model.num_layers=3", "--model.layer_size=64",
                              "--task.outer_points=1024"]
 NN_LEAP_FLAGS = NN_COMMON + ["--model.num_layers=5", "--model.layer_size=64",
                              "--maml.outer_lr=2.5e-5", "--task.outer_points=512"]
-NN_SEEDS = (1, 2, 3, 4)  # the script's 8 seeds, cut to 4, their jobs all at once
+# the script's 8 seeds, cut to 4, then to 2 to pay for the classical-solver
+# phases; their jobs all at once
+NN_SEEDS = (1, 2)
 NN_FACTOR = 3.0
 # Median over the 8 seeds of val_rel_err at steps 0, 100 and 195 and of
 # each seed's best, from the JAX package's runs of the two commands,
@@ -702,6 +741,9 @@ BASELINE_FACTOR = 10.0
 BASELINE_PARITY_REF = 16
 BASELINE_PARITY_RESOLUTIONS = (4, 8)
 BASELINE_PARITY_RMS_TOL = 1e-5
+BASELINE_CONV_ARGS = ["--task.pde=poisson", f"--ref_resolution={BASELINE_PARITY_REF}",
+                      "--resolutions=" + ",".join(map(str, BASELINE_PARITY_RESOLUTIONS)),
+                      "--n_tasks=1"]
 # H100 SXM published peaks (dense, at the 700 W limit): TF32 on the tensor
 # cores, f32 outside them, and HBM bandwidth. The SFU returns 16 sines per
 # clock per SM where the CUDA cores do 128 f32 FMAs (2 flops each): the CUDA
@@ -1111,24 +1153,61 @@ def _solve_counted(solve, task, device):
     return gt, secs, newton.newton_krylov.steps, newton.bicgstab.iterations
 
 
+def _gt_mg_tasks():
+    """The first GT_MG_TASKS eval tasks (host draws, deploy_bench's seed)."""
+    pde = get_pde(Config().task)
+    gen = torch.Generator().manual_seed(Config().seed + 7919)
+    return [pde.sample_params(gen) for _ in range(GT_MG_TASKS)]
+
+
+def _gt_mg_solve(task):
+    return fem_poisson.solve(task, resolution=MG_RES)
+
+
+def gt_mg_cpu_main(out):
+    """ground_truth_mg's CPU side, in a process of its own (python -c):
+    each task's solve on the CPU, its counts and seconds, and the threads,
+    saved to `out`."""
+    torch.save({"solves": [_solve_counted(_gt_mg_solve, task, "cpu")
+                           for task in _gt_mg_tasks()],
+                "threads": torch.get_num_threads()}, out)
+
+
+_GT_MG_CPU = []
+
+
+def _gt_mg_cpu():
+    """ground_truth_mg's CPU process (started once, at the run's start in
+    main, so that it solves beside the phases before it): (process, file)."""
+    if not _GT_MG_CPU:
+        out = Path(tempfile.mkdtemp(prefix="chip_smoke_mg_")) / "cpu.pt"
+        atexit.register(shutil.rmtree, out.parent, True)
+        # two threads: the solve at 32 is bound by its Python loop, and the
+        # card's phases beside it by their host thread
+        proc = _spawn([sys.executable, "-c", "import sys, chip_smoke; "
+                       "chip_smoke.gt_mg_cpu_main(sys.argv[1])", str(out)], cwd=REPO,
+                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                      env=dict(os.environ, OMP_NUM_THREADS="2"))
+        _AWAITED.append(proc)
+        _GT_MG_CPU.append((proc, out))
+    return _GT_MG_CPU[0]
+
+
 def phase_ground_truth_mg():
     """The first GT_MG_TASKS eval tasks (host draws, deploy_bench's seed)
     solved at resolution 32 with the multigrid preconditioner on the card
-    and on the CPU, one after the other, each held to the float64 solve on
-    the card, then the card side's V-cycle, BiCGStab and profiled solve on
-    a quiet host."""
+    and on the CPU (in a process of its own, started at the run's start),
+    each held to the float64 solve on the card, then the card side's
+    V-cycle, BiCGStab and profiled solve on a quiet host."""
     t0 = time.perf_counter()
-    pde = get_pde(Config().task)
-    gen = torch.Generator().manual_seed(Config().seed + 7919)
-    tasks = [pde.sample_params(gen) for _ in range(GT_MG_TASKS)]
+    tasks = _gt_mg_tasks()
+    proc, cpu_file = _gt_mg_cpu()
     rows = []
-
-    def solve(task):
-        return fem_poisson.solve(task, resolution=MG_RES)
-
-    for task in tasks:
-        g, g_s, g_steps, g_iters = _solve_counted(solve, task, "cuda")
-        c, c_s, c_steps, c_iters = _solve_counted(solve, task, "cpu")
+    card_solves = [_solve_counted(_gt_mg_solve, task, "cuda") for task in tasks]
+    _awaited_output(proc, "ground_truth_mg")
+    cpu_side = torch.load(cpu_file, weights_only=False)
+    for task, (g, g_s, g_steps, g_iters), (c, c_s, c_steps, c_iters) in zip(
+            tasks, card_solves, cpu_side["solves"]):
         ref, x_s, x_steps, x_iters = _solve_counted(
             lambda t: fem_poisson.solve_x64(t, resolution=MG_RES, rel_tol=MG_X64_REL_TOL,
                                             max_newton_steps=MG_X64_NEWTON,
@@ -1140,7 +1219,7 @@ def phase_ground_truth_mg():
         rows.append({"card_s": g_s, "cpu_s": c_s, "newton_steps": g_steps,
                      "krylov_iters": g_iters, "krylov_per_newton": g_iters / max(g_steps, 1),
                      "cpu_newton_steps": c_steps, "cpu_krylov_iters": c_iters,
-                     "cpu_threads": torch.get_num_threads(),
+                     "cpu_threads": cpu_side["threads"],
                      "residual_norm": float(g.residual_norm),
                      "cpu_residual_norm": float(c.residual_norm),
                      "card_vs_x64": card_err, "cpu_vs_x64": cpu_err,
@@ -1472,9 +1551,9 @@ def phase_train():
             "resumed_gt_solved_read": resumed}
 
 
-# 3 timed blocks of 2 outer steps and one profiled block of 2, so that the
-# whole run, TD-Burgers phases included, stays under 700 s
-BENCH_CUTS = {"block": 2, "blocks": 2}
+# 1 timed block of 2 outer steps (cut from 3, then 2, for the smoke's time)
+# and one profiled block of 2
+BENCH_CUTS = {"block": 2, "blocks": 1}
 BENCH_KEYS = ("outer_steps_per_s", "residual_pt_evals_per_s", "draw_s_per_step",
               "device_busy_ms_per_step", "device_idle_share", "kernels_per_step",
               "max_memory_allocated_bytes", "bf16_gemm", "nvidia_smi", "config")
@@ -2397,81 +2476,95 @@ def _done_line(run):
     return float(words[4]), float(words[8]), int(words[12])
 
 
-def _nn_sweep(name, driver, flags, init_run, jax_medians, warmup, seeds=NN_SEEDS, steps=200,
-              report=(0, 100), num_tsteps=None):
-    """cli/sweep over `seeds` (all at once) with `driver` and the command's
-    flags from `init_run`, the kernel on, `steps` Adam steps, into the
-    shared out_dir; each job counts its own siren_fused launches from 0 (a
-    fresh process) and writes them in its log.txt's closing line. Holds
-    each seed to one launch per validation call (and with `num_tsteps`,
-    every row to that many finite per-timestep errors) and the median over
-    the seeds of the last validation's val_rel_err (step steps - 5) to
-    NN_FACTOR x the JAX package's 8-seed median at that step; the medians
-    at the steps of `report` and of each seed's best are printed beside."""
+def _nn_sweeps(specs, seeds=NN_SEEDS, steps=200, report=(0, 100)):
+    """cli/sweep over `seeds` for each command of `specs` ((name, driver,
+    flags, init run, JAX medians, warm-up, num_tsteps)), every job of every
+    command at once, with the command's flags from its init run, the kernel
+    on, `steps` Adam steps, into the shared out_dir; each job counts its own
+    siren_fused launches from 0 (a fresh process) and writes them in its
+    log.txt's closing line. Holds each seed to one launch per validation
+    call (and with num_tsteps, every row to that many finite per-timestep
+    errors) and each command's median over the seeds of the last
+    validation's val_rel_err (step steps - 5) to NN_FACTOR x the JAX
+    package's 8-seed median at that step; the medians at the steps of
+    `report` and of each seed's best are printed beside. Returns name ->
+    row."""
     t0 = time.perf_counter()
     out = _nn_out()
     concurrency = len(seeds)
-    cmd = [sys.executable, "-m", "metapde_tpu_torch.cli.sweep", f"--driver={driver}",
-           "--seeds=" + ",".join(map(str, seeds)), f"--concurrency={concurrency}", "--",
-           *flags, f"--train.outer_steps={steps}", "--model.use_pallas_inference=true",
-           f"--train.load_model_from_expt={init_run}", f"--train.out_dir={out}",
-           f"--train.expt_name={name}"]
     # the jobs share the host's cores for their draws and launches
-    env = {**os.environ,
-           "OMP_NUM_THREADS": str(max(1, len(os.sched_getaffinity(0)) // concurrency))}
-    proc = _spawn(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                  env=env)
+    env = {**os.environ, "OMP_NUM_THREADS": str(max(
+        1, len(os.sched_getaffinity(0)) // (concurrency * len(specs))))}
+    procs = {}
     try:
-        text, _ = proc.communicate(timeout=600)
+        for name, driver, flags, init_run, *_ in specs:
+            cmd = [sys.executable, "-m", "metapde_tpu_torch.cli.sweep", f"--driver={driver}",
+                   "--seeds=" + ",".join(map(str, seeds)), f"--concurrency={concurrency}",
+                   "--", *flags, f"--train.outer_steps={steps}",
+                   "--model.use_pallas_inference=true",
+                   f"--train.load_model_from_expt={init_run}", f"--train.out_dir={out}",
+                   f"--train.expt_name={name}"]
+            procs[name] = _spawn(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True, env=env)
+        texts = {name: proc.communicate(timeout=600)[0] for name, proc in procs.items()}
     finally:
         _kill_children()
     wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"{name}: the sweep exited {proc.returncode}: {text[-4000:]}")
-    per_seed = {}
-    for s in seeds:
-        run = out / f"{name}_seed_{s}"
-        log = (run / "log.txt").read_text()
-        recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
-        run_s, gt_s, launches = _done_line(run)
-        val = {r["step"]: r["val_rel_err"] for r in recs}
-        if sorted(val) != list(range(0, steps, 5)) or not all(map(math.isfinite, val.values())):
-            raise AssertionError(f"{name} seed {s}: validation steps {sorted(val)}, values "
-                                 f"{list(val.values())}")
-        for r in recs if num_tsteps else ():
-            pts = r["per_time_step_error"]
-            if len(pts) != num_tsteps or not all(map(math.isfinite, pts)):
-                raise AssertionError(f"{name} seed {s} step {r['step']}: per_time_step_error "
-                                     f"has {len(pts)} entries (expected {num_tsteps} finite)")
-        if warmup and "applied MAML warm-up adaptation" not in log:
-            raise AssertionError(f"{name} seed {s}: no MAML warm-up in log.txt")
-        if launches != len(recs):
-            raise AssertionError(f"{name} seed {s}: {launches} siren_fused launches for "
-                                 f"{len(recs)} validation calls")
-        per_seed[s] = {"val": val, "run_s": run_s, "gt_s": gt_s, "launches": launches,
-                       "gt_solved_read": _gt_log(run),
-                       "steps_per_s": 1.0 / statistics.median(r["step_time"] for r in recs[1:])}
-    last = steps - 5
-    med = {f"step_{k}": statistics.median(d["val"][k] for d in per_seed.values())
-           for k in (*report, last)}
-    med["best"] = statistics.median(min(d["val"].values()) for d in per_seed.values())
-    bar = NN_FACTOR * jax_medians[f"step_{last}"]
-    if not med[f"step_{last}"] <= bar:
-        raise AssertionError(f"{name}: step-{last} median {med[f'step_{last}']} above "
-                             f"{NN_FACTOR} x the JAX package's {jax_medians[f'step_{last}']}")
-    return {"reduced": {"seeds": len(seeds), "of": 8, "steps": steps, "of_steps": 200},
-            "concurrency": concurrency, "wall_s": wall, "median": med,
-            "jax_median": jax_medians, "compared_step": last, "bar": bar,
+    rows = {}
+    for name, driver, flags, init_run, jax_medians, warmup, num_tsteps in specs:
+        if procs[name].returncode != 0:
+            raise AssertionError(f"{name}: the sweep exited {procs[name].returncode}: "
+                                 f"{texts[name][-4000:]}")
+        per_seed = {}
+        for s in seeds:
+            run = out / f"{name}_seed_{s}"
+            log = (run / "log.txt").read_text()
+            recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+            run_s, gt_s, launches = _done_line(run)
+            val = {r["step"]: r["val_rel_err"] for r in recs}
+            if sorted(val) != list(range(0, steps, 5)) or not all(map(math.isfinite,
+                                                                       val.values())):
+                raise AssertionError(f"{name} seed {s}: validation steps {sorted(val)}, "
+                                     f"values {list(val.values())}")
+            for r in recs if num_tsteps else ():
+                pts = r["per_time_step_error"]
+                if len(pts) != num_tsteps or not all(map(math.isfinite, pts)):
+                    raise AssertionError(f"{name} seed {s} step {r['step']}: "
+                                         f"per_time_step_error has {len(pts)} entries "
+                                         f"(expected {num_tsteps} finite)")
+            if warmup and "applied MAML warm-up adaptation" not in log:
+                raise AssertionError(f"{name} seed {s}: no MAML warm-up in log.txt")
+            if launches != len(recs):
+                raise AssertionError(f"{name} seed {s}: {launches} siren_fused launches for "
+                                     f"{len(recs)} validation calls")
+            per_seed[s] = {"val": val, "run_s": run_s, "gt_s": gt_s, "launches": launches,
+                           "gt_solved_read": _gt_log(run),
+                           "steps_per_s": 1.0 / statistics.median(r["step_time"]
+                                                                  for r in recs[1:])}
+        last = steps - 5
+        med = {f"step_{k}": statistics.median(d["val"][k] for d in per_seed.values())
+               for k in (*report, last)}
+        med["best"] = statistics.median(min(d["val"].values()) for d in per_seed.values())
+        bar = NN_FACTOR * jax_medians[f"step_{last}"]
+        if not med[f"step_{last}"] <= bar:
+            raise AssertionError(f"{name}: step-{last} median {med[f'step_{last}']} above "
+                                 f"{NN_FACTOR} x the JAX package's "
+                                 f"{jax_medians[f'step_{last}']}")
+        rows[name] = {
+            "reduced": {"seeds": len(seeds), "of": 8, "steps": steps, "of_steps": 200},
+            "concurrency": concurrency, "commands_at_once": len(specs), "wall_s": wall,
+            "median": med, "jax_median": jax_medians, "compared_step": last, "bar": bar,
             "launches": sum(d["launches"] for d in per_seed.values()),
             "validations": steps // 5 * len(seeds),
             "per_seed": {s: {f"step_{last}": d["val"][last], "best": min(d["val"].values()),
                              **{k: d[k] for k in ("run_s", "gt_s", "launches",
                                                   "gt_solved_read", "steps_per_s")}}
                          for s, d in per_seed.items()},
-            # the jobs start together: the sweep's wall time less its
-            # longest run, one process's start-up (interpreter, imports,
-            # CUDA context) and the sweep's own
+            # the jobs start together: the sweeps' wall time less the longest
+            # run, one process's start-up (interpreter, imports, CUDA
+            # context) and the sweep's own
             "startup_s": wall - max(d["run_s"] for d in per_seed.values())}
+    return rows
 
 
 def _nn_step_numbers(flags, params):
@@ -2490,8 +2583,8 @@ def phase_nn_deploy_maml():
     at 32), with the kernel on; then one step of it alone on the card,
     profiled."""
     t0 = time.perf_counter()
-    row = _nn_sweep("deploy_maml", "nn_pde_maml", NN_MAML_FLAGS, MAML_INIT_RUN, JAX_NN_MAML,
-                    warmup=True)
+    row = _nn_sweeps([("deploy_maml", "nn_pde_maml", NN_MAML_FLAGS, MAML_INIT_RUN, JAX_NN_MAML,
+                       True, None)])["deploy_maml"]
     row["step"] = _nn_step_numbers(NN_MAML_FLAGS, _nn_state(MAML_INIT_CKPT, "cuda"))
     emit("nn_deploy_maml", t0, **row)
     return row
@@ -2504,8 +2597,8 @@ def phase_nn_deploy_leap():
     in this process."""
     t0 = time.perf_counter()
     maml_ran = (_nn_out() / "deploy_maml_seed_1").exists()
-    row = _nn_sweep("deploy_leap", "nn_pde", NN_LEAP_FLAGS, LEAP_RUN, JAX_NN_LEAP,
-                    warmup=False)
+    row = _nn_sweeps([("deploy_leap", "nn_pde", NN_LEAP_FLAGS, LEAP_RUN, JAX_NN_LEAP, False,
+                       None)])["deploy_leap"]
     reads = {s: d["gt_solved_read"] for s, d in row["per_seed"].items()}
     if maml_ran and set(reads.values()) != {(0, 1)}:
         raise AssertionError(f"nn_deploy_leap: (solved, read) {reads}: the ground truths "
@@ -2625,34 +2718,62 @@ NN_ELAS_LEAP_FLAGS = _NN_ELAS + ["--task.max_hole_size=0.5",
 NN_FAMILY_STEPS = 100
 NN_FAMILY_SEEDS = (1, 2)
 NN_FAMILY_REPORT = (0,)
-# Median over the 8 seeds of val_rel_err at steps 0, 95 and 195 and of each
-# seed's best, from the JAX package's runs in results_burgers_deploy/ and
-# results_elasticity_deploy/ (deploy_{maml,leap}_seed_{1..8}/metrics.jsonl;
-# their log.txt names the inits they loaded: bm6, ldb3_2, em5 and lde1_1)
-JAX_NN_BURGERS_MAML = {"step_0": 0.36352650821208954, "step_95": 6.968272646190599e-05,
-                       "step_195": 6.590400153072551e-05, "best": 4.374263698991854e-05}
-JAX_NN_BURGERS_LEAP = {"step_0": 0.28711598366498947, "step_95": 0.000805711024440825,
-                       "step_195": 0.000432249580626376, "best": 0.00030512696685036644}
-JAX_NN_ELAS_MAML = {"step_0": 0.0063771759159862995, "step_95": 0.007547663291916251,
-                    "step_195": 0.007870134664699435, "best": 0.005118096945807338}
-JAX_NN_ELAS_LEAP = {"step_0": 0.0039778961800038815, "step_95": 0.0019869357347488403,
-                    "step_195": 0.00209752784576267, "best": 0.0012615617597475648}
+# The bar: the JAX package's median over seeds 1-8 of val_rel_err at step
+# 95 of 100 (and at step 0, and of each seed's best) from the same init
+# checkpoint with the script's other flags, on a CPU:
+#   env PYTHONPATH=. JAX_PLATFORMS=cpu python tests/jax_nn_sweep_bar.py
+JAX_NN_BURGERS_MAML = {"step_0": 0.23263408243656158, "step_95": 8.683187479618937e-05,
+                       "best": 7.326563354581594e-05}
+JAX_NN_BURGERS_LEAP = {"step_0": 0.10147755220532417, "step_95": 0.0019697873503901064,
+                       "best": 0.0004415438597789034}
+JAX_NN_ELAS_MAML = {"step_0": 0.005907169776037335, "step_95": 0.0064213990699499846,
+                    "best": 0.004898502491414547}
+JAX_NN_ELAS_LEAP = {"step_0": 0.0018094299593940377, "step_95": 0.00199914030963555,
+                    "best": 0.0012274113250896335}
+# Printed beside, not held to: the 8-seed medians of the JAX package's runs
+# in results_burgers_deploy/ and results_elasticity_deploy/ (200 steps;
+# deploy_{maml,leap}_seed_{1..8}/metrics.jsonl), which loaded other inits
+# (their log.txt: bm6, ldb3_2, em5 and lde1_1), the bar before these
+JAX_NN_CROSS_INIT = {
+    "burgers_maml": {"step_0": 0.36352650821208954, "step_95": 6.968272646190599e-05,
+                     "step_195": 6.590400153072551e-05, "best": 4.374263698991854e-05},
+    "burgers_leap": {"step_0": 0.28711598366498947, "step_95": 0.000805711024440825,
+                     "step_195": 0.000432249580626376, "best": 0.00030512696685036644},
+    "elasticity_maml": {"step_0": 0.0063771759159862995, "step_95": 0.007547663291916251,
+                        "step_195": 0.007870134664699435, "best": 0.005118096945807338},
+    "elasticity_leap": {"step_0": 0.0039778961800038815, "step_95": 0.0019869357347488403,
+                        "step_195": 0.00209752784576267, "best": 0.0012615617597475648}}
 
 
 def phase_leap_family_parity():
     """One LEAP outer step from ldb3_2's checkpoint_step_40000 and from
-    lde2_3's best checkpoint, each with its Adam state, on the card and on
+    lde2_3's best checkpoint, each with its Adam state, from sbi10_2's
+    params (steady Burgers, 5x64) and from a fresh poisson3d init at the
+    one-chip width (5x128), each with a fresh Adam state, on the card and on
     the CPU on shared host draws (TF32 off): params within TRAIN_LEAF_TOL of
     each leaf's scale, meta-losses within TRAIN_LOSS_RTOL, the meta-gradient
     within LEAP_GRAD_LEAF_TOL of each leaf's largest entry and
     LEAP_GRAD_TREE_TOL of its norm."""
     t0 = time.perf_counter()
     runs = {}
-    for name, run, ckpt in (("ldb3_2", LDB_RUN, LDB_CKPT), ("lde2_3", LDE_RUN, LDE_BEST_CKPT)):
-        cfg = parse_overrides(load_run_config(str(run)), LEAP_FAMILY_PARITY_CUTS)
-        ck = checkpoints.load_checkpoint(str(ckpt))
-        state = (params_from_numpy(ck["params"]),
-                 optimizers.from_jax_state(cfg.train.optimizer, ck["opt_state"]))
+    cases = [(name, parse_overrides(load_run_config(str(run)), LEAP_FAMILY_PARITY_CUTS), ckpt,
+              True) for name, run, ckpt in (("ldb3_2", LDB_RUN, LDB_CKPT),
+                                            ("lde2_3", LDE_RUN, LDE_BEST_CKPT))]
+    # LEAP on steady Burgers from sbi10_2's MAML params and on poisson3d
+    # from a fresh init, each with a fresh Adam state
+    cases += [("sbi10_2", parse_overrides(load_run_config(str(SB_RUN)),
+                                          LEAP_FAMILY_PARITY_CUTS), SB_CKPT, False),
+              ("poisson3d", parse_overrides(Config(), P3D_FLAGS + LEAP_FAMILY_PARITY_CUTS),
+               None, False)]
+    for name, cfg, ckpt, with_adam in cases:
+        ck = checkpoints.load_checkpoint(str(ckpt)) if ckpt else {"step": 0}
+        if with_adam:
+            state = (params_from_numpy(ck["params"]),
+                     optimizers.from_jax_state(cfg.train.optimizer, ck["opt_state"]))
+        else:
+            c = leap_driver.build(cfg, "cpu")
+            params = params_from_numpy(ck["params"]) if ckpt else c["init_params"]
+            state = (params, c["outer_opt"].init(params))
         rows, t_card, t_cpu = _leap_train_both(cfg, 1, state)
         r = rows[0]
         if not (r["meta_grad_leaf_err"] <= LEAP_GRAD_LEAF_TOL
@@ -2660,7 +2781,8 @@ def phase_leap_family_parity():
             raise AssertionError(f"{name}: meta-gradient card vs CPU beyond "
                                  f"{LEAP_GRAD_LEAF_TOL} of a leaf's largest entry or "
                                  f"{LEAP_GRAD_TREE_TOL} of its norm: {r}")
-        runs[name] = {"checkpoint": str(ckpt.relative_to(REPO)), "step": int(ck["step"]),
+        runs[name] = {"checkpoint": str(ckpt.relative_to(REPO)) if ckpt else None,
+                      "step": int(ck["step"]), "family": cfg.task.pde,
                       "width": f"{cfg.model.num_layers}x{cfg.model.layer_size}",
                       "points": cfg.task.inner_points, "card_s": t_card, "cpu_s": t_cpu, **r}
     emit("leap_family_parity", t0, reduced=LEAP_FAMILY_PARITY_CUTS, leaf_tol=TRAIN_LEAF_TOL,
@@ -2770,16 +2892,18 @@ def phase_leap_elasticity_train():
 
 
 def _nn_family(name, sweeps):
-    """Both commands of one script through cli/sweep (sweeps: (expt name,
-    driver, flags, init run, its checkpoint, JAX medians, warm-up)), then
-    each command's fine-tune step alone on the card."""
+    """Both commands of one script through cli/sweep, their jobs all at once
+    (sweeps: (expt name, driver, flags, init run, its checkpoint, JAX
+    medians, warm-up)), then each command's fine-tune step alone on the
+    card."""
     t0 = time.perf_counter()
-    rows = {}
-    for expt, driver, flags, init, ckpt, jax_med, warm in sweeps:
-        rows[expt] = _nn_sweep(
-            expt, driver, flags, init, jax_med, warm, seeds=NN_FAMILY_SEEDS,
-            steps=NN_FAMILY_STEPS, report=NN_FAMILY_REPORT,
-            num_tsteps=201 if "--task.pde=td_burgers" in flags else None)
+    rows = _nn_sweeps(
+        [(expt, driver, flags, init, jax_med, warm,
+          201 if "--task.pde=td_burgers" in flags else None)
+         for expt, driver, flags, init, _, jax_med, warm in sweeps],
+        seeds=NN_FAMILY_SEEDS, steps=NN_FAMILY_STEPS, report=NN_FAMILY_REPORT)
+    for expt, _, flags, _, ckpt, _, _ in sweeps:
+        rows[expt]["jax_cross_init_median"] = JAX_NN_CROSS_INIT[expt]
         rows[expt]["step"] = _nn_step_numbers(flags, _nn_state(ckpt, "cuda"))
     emit(name, t0, **rows)
     return rows
@@ -2824,15 +2948,11 @@ def phase_solver_baseline():
     falling with resolution and within BASELINE_FACTOR either way of the
     JAX package's on the same tasks (the committed JAX sweep's ratio
     printed beside); then cli/gt_convergence (Poisson, one task
-    at 4 and 8 against 16) on the card and, in a process of its own started
-    first, on the CPU: sqrt(rel_mse) within BASELINE_PARITY_RMS_TOL."""
+    at 4 and 8 against 16) on the card and on the CPU (_solver_cpu, started
+    with the later solver phases' CPU sides): sqrt(rel_mse) within
+    BASELINE_PARITY_RMS_TOL."""
     t0 = time.perf_counter()
-    conv_args = ["--task.pde=poisson", f"--ref_resolution={BASELINE_PARITY_REF}",
-                 "--resolutions=" + ",".join(map(str, BASELINE_PARITY_RESOLUTIONS)),
-                 "--n_tasks=1"]
-    cpu = _spawn(
-        [sys.executable, "-m", "metapde_tpu_torch.cli.gt_convergence", "--device=cpu",
-         *conv_args], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _solver_cpu("solver_baseline")
     try:
         with tempfile.TemporaryDirectory() as tmp:
             rows, ref_s = _baseline(tmp, "res_sweep", [
@@ -2842,13 +2962,11 @@ def phase_solver_baseline():
             written = (Path(tmp) / "res_sweep" / "errors_by_resolution.json").exists()
         t1 = time.perf_counter()
         with io.StringIO() as buf, contextlib.redirect_stdout(buf):
-            card = gt_convergence.main(conv_args)
+            card = gt_convergence.main(BASELINE_CONV_ARGS)
         conv_s = time.perf_counter() - t1
-        out, err = cpu.communicate(timeout=400)
+        out = _cpu_result("solver_baseline")
     finally:
         _kill_children()
-    if cpu.returncode != 0:
-        raise AssertionError(f"the CPU gt_convergence exited {cpu.returncode}: {err[-3000:]}")
     cpu_rows = [json.loads(l) for l in out.splitlines() if l.startswith('{"resolution"')]
     committed = json.loads(BASELINE_JSON.read_text())
     mse = [rows[str(r)]["rel_mse"] for r in BASELINE_RESOLUTIONS]
@@ -2877,6 +2995,286 @@ def phase_solver_baseline():
          "by a few hard tasks; set beside, not held to",
          gt_convergence={"card": card, "cpu": cpu_rows, "rel": rel, "rms_diff": rms,
                          "rms_tol": BASELINE_PARITY_RMS_TOL, "card_s": conv_s})
+
+
+# --- the classical-solver side of TD-Burgers, hyperelasticity and steady
+# Burgers (pipeline/baseline.sh, cpu_queue_round14.sh's two-axis sweeps,
+# baselines/steady_burgers/gt_convergence.jsonl) --------------------------
+
+# Each rel_mse within 1e-2 relative of the JAX package's on the port's own
+# tasks and coords (its solvers, its float64 reference, its evaluation),
+# from tests/jax_solver_sweep_bar.py on a CPU with the command beside each
+# table; the card against the CPU on one task by sqrt(rel_mse) within
+# BASELINE_PARITY_RMS_TOL (1e-5)
+SWEEP_JAX_RTOL = 1e-2
+# baseline.sh's TD-Burgers command uncut (FV reference at 512 in float64, 8
+# tasks, 9 output times), then cpu_queue_round14.sh's num_tsteps axis (51,
+# 201, 801 about its 201) about the 9 at one resolution on one task (the
+# card-vs-CPU comparison)
+BURGERS_SWEEP_FLAGS = ["--task.pde=td_burgers", "--task.domain.xmin=0.0",
+                       "--task.vary_source=false", "--task.max_reynolds=100",
+                       "--task.num_tsteps=9", "--solver.ground_truth_resolution=512",
+                       "--task.n_eval=8"]
+BURGERS_SWEEP_RESOLUTIONS = (16, 32, 64, 128, 256)
+BURGERS_SWEEP_AXIS2 = (64, "num_tsteps", (5, 9, 33))
+BURGERS_SWEEP_REDUCED = {"axis2 num_tsteps": "51,201,801 about 201 on 4 tasks -> 5,9,33 "
+                                             "about 9 at resolution 64 on 1 task"}
+# tests/jax_solver_sweep_bar.py <the flags> --n_eval=8 --ref=512
+#   --resolutions=16,32,64,128,256; then --n_eval=1 --resolutions=64
+#   --axis2=num_tsteps:5,9,33
+JAX_BURGERS_SAME_TASKS = {"16": 0.02044256393878939, "32": 0.0066570638418489095,
+                          "64": 0.0019484726255065252, "128": 0.00043480284556354906,
+                          "256": 5.342175209587893e-05, "64,num_tsteps=5": 0.056243572943702934,
+                          "64,num_tsteps=9": 0.0033910190014777635,
+                          "64,num_tsteps=33": 0.0033910190014777635}
+# baseline.sh's hyperelasticity command (reference at 64, resolutions 4, 8,
+# 16, 32, 8 tasks) cut to the clock: 1 task (its ligament floor is 11, so 4
+# and 8 solve one lattice: 4 dropped) and cpu_queue_round14.sh's
+# boundary_cap axis at resolution 8, a cap of 8 beside the default 192
+ELAS_SWEEP_FLAGS = ["--task.pde=hyper_elasticity", "--task.domain.xmin=0.0",
+                    "--task.domain.ymin=0.0", "--task.max_holes=5",
+                    "--task.max_hole_size=1.0", "--task.vary_source=false",
+                    "--task.vary_bc=false", "--solver.ground_truth_resolution=64",
+                    "--task.n_eval=1"]
+ELAS_SWEEP_RESOLUTIONS = (8, 16, 32)
+ELAS_SWEEP_AXIS2 = (8, "boundary_cap", (8, 192))
+ELAS_SWEEP_REDUCED = {"task.n_eval": "8 -> 1", "resolutions": "4,8,16,32 -> 8,16,32",
+                      "axis2 boundary_cap": "48,96,192 -> 8,192 at resolution 8"}
+# tests/jax_solver_sweep_bar.py <the flags> --n_eval=1 --ref=64
+#   --resolutions=8,16,32; then --resolutions=8 --axis2=boundary_cap:8,192
+JAX_ELAS_SAME_TASKS = {"8": 0.0064991866019509775, "16": 0.002409478116875215,
+                       "32": 0.00093817434363767, "8,boundary_cap=8": 0.07490928253134559,
+                       "8,boundary_cap=192": 0.0064991866019509775}
+# cli/gt_convergence on one steady Burgers task (seed 0) at 16, 24 and 32
+# against its float64 reference at 48 (the committed run's 96 cut: a
+# float64 solve at 96 takes minutes on a CPU)
+STEADY_CONV_ARGS = ["--task.pde=steady_burgers", "--resolutions=16,24,32",
+                    "--ref_resolution=48", "--n_tasks=1"]
+STEADY_CONV_REDUCED = {"ref_resolution": "96 -> 48", "n_tasks": "4 -> 1",
+                       "resolutions": "16,24,32,48 -> 16,24,32"}
+# tests/jax_solver_sweep_bar.py --task.pde=steady_burgers --gt_convergence
+#   --n_eval=1 --ref=48 --resolutions=16,24,32
+JAX_STEADY_SAME_TASK = {"16": 0.2555787736267877, "24": 0.004443109203005451,
+                        "32": 0.0004324142065702798}
+STEADY_CONV_JSONL = REPO / "baselines" / "steady_burgers" / "gt_convergence.jsonl"
+
+
+def _one_task(flags):
+    return [a for a in flags if not a.startswith("--task.n_eval=")] + ["--task.n_eval=1"]
+
+
+def _res_arg(resolutions):
+    return "--resolutions=" + ",".join(map(str, resolutions))
+
+
+def _axis_args(flags, axis2):
+    """The second-axis command of a family's flags on one task: axis2 =
+    (resolution, keyword, values)."""
+    res, key, values = axis2
+    return [*_one_task(flags), f"--resolutions={res}",
+            f"--axis2={key}:" + ",".join(map(str, values))]
+
+
+# The CPU side of each solver phase: every one is started, each in a
+# process of its own (_spawn) with a quarter of the host's cores, when the
+# first is asked for, so that they run beside the card's sweeps; a phase
+# spares the others' when it ends (_AWAITED)
+_SOLVER_CPU = {}
+
+
+def _solver_cpu_args(out):
+    """Phase -> (cli module, its arguments) of each CPU side; the sweeps
+    write into `out`."""
+    def sweep(name, flags, axis2):
+        return ("solver_baseline", [*_axis_args(flags, axis2), f"--train.out_dir={out}",
+                                    f"--train.expt_name={name}"])
+    return {"solver_baseline": ("gt_convergence", BASELINE_CONV_ARGS),
+            "solver_baseline_burgers": sweep("solver_baseline_burgers", BURGERS_SWEEP_FLAGS,
+                                             BURGERS_SWEEP_AXIS2),
+            "solver_baseline_elasticity": sweep("solver_baseline_elasticity",
+                                                ELAS_SWEEP_FLAGS, ELAS_SWEEP_AXIS2),
+            "gt_convergence_steady": ("gt_convergence", STEADY_CONV_ARGS)}
+
+
+def _solver_cpu(name):
+    """The CPU side of solver phase `name`, every phase's started at the
+    first call: (its process, the directory a sweep writes to)."""
+    if not _SOLVER_CPU:
+        out = Path(tempfile.mkdtemp(prefix="chip_smoke_cpu_"))
+        atexit.register(shutil.rmtree, out, True)
+        env = dict(os.environ, OMP_NUM_THREADS=str(max(1, len(os.sched_getaffinity(0)) // 4)))
+        for phase, (module, args) in _solver_cpu_args(out).items():
+            _SOLVER_CPU[phase] = (_spawn(
+                [sys.executable, "-m", f"metapde_tpu_torch.cli.{module}", "--device=cpu",
+                 *args], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env), out)
+            _AWAITED.append(_SOLVER_CPU[phase][0])
+    return _SOLVER_CPU[name]
+
+
+def _awaited_output(proc, name, timeout=600):
+    """The stdout of an awaited process once it exits 0; no longer spared."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc in _AWAITED:
+        _AWAITED.remove(proc)
+    if proc.returncode != 0:
+        raise AssertionError(f"{name}: the process exited {proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def _cpu_result(name, timeout=600):
+    """The stdout of phase `name`'s CPU side once it exits 0."""
+    return _awaited_output(_solver_cpu(name)[0], name, timeout)
+
+
+def _rms_diffs(card, cpu):
+    """|sqrt(card rel_mse) - sqrt(cpu rel_mse)| by label; both must hold the
+    same labels."""
+    if sorted(card) != sorted(cpu):
+        raise AssertionError(f"card labels {sorted(card)}, CPU labels {sorted(cpu)}")
+    return {k: abs(math.sqrt(card[k]) - math.sqrt(cpu[k])) for k in card}
+
+
+def _hold_to_jax(name, rows, jax_rows):
+    """Each label's rel_mse / the JAX package's on the same tasks, within
+    SWEEP_JAX_RTOL of 1."""
+    if sorted(rows) != sorted(jax_rows):
+        raise AssertionError(f"{name}: labels {sorted(rows)}, the JAX bar's {sorted(jax_rows)}")
+    rel = {k: rows[k] / jax_rows[k] - 1.0 for k in rows}
+    if not max(map(abs, rel.values())) <= SWEEP_JAX_RTOL:
+        raise AssertionError(f"{name}: rel_mse against the JAX package's on the same tasks "
+                             f"off by {rel} (bar {SWEEP_JAX_RTOL})")
+    return rel
+
+
+def _solver_family(name, flags, resolutions, axis2, jax_same, committed):
+    """cli/solver_baseline on the card with `flags` at `resolutions`, then
+    on one task at axis2 = (resolution, keyword, values), that command also
+    on the CPU (_solver_cpu). Bars: rel_mse falling with resolution, every
+    label within SWEEP_JAX_RTOL of the JAX package's on the same tasks, card
+    vs CPU sqrt(rel_mse) within BASELINE_PARITY_RMS_TOL. The committed JAX
+    sweeps (`committed`: name -> path) are printed beside."""
+    t0 = time.perf_counter()
+    _, cpu_out = _solver_cpu(name)
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            t1 = time.perf_counter()
+            rows, ref_s = _baseline(tmp, "res_sweep", [*flags, _res_arg(resolutions)])
+            sweep_s = time.perf_counter() - t1
+            rows2, _ = _baseline(tmp, "sweep2axis", _axis_args(flags, axis2))
+            _cpu_result(name)
+            cpu_rows = json.loads((cpu_out / name / "errors_by_resolution.json").read_text())
+        finally:
+            _kill_children()
+    mse = [rows[str(r)]["rel_mse"] for r in resolutions]
+    if not all(a > b for a, b in zip(mse, mse[1:])):
+        raise AssertionError(f"{name}: rel_mse {mse} at {resolutions} not falling")
+    every = {**{k: r["rel_mse"] for k, r in rows.items()},
+             **{k: r["rel_mse"] for k, r in rows2.items()}}
+    rel = _hold_to_jax(name, every, jax_same)
+    rms = _rms_diffs({k: r["rel_mse"] for k, r in rows2.items()},
+                     {k: r["rel_mse"] for k, r in cpu_rows.items()})
+    if not max(rms.values()) <= BASELINE_PARITY_RMS_TOL:
+        raise AssertionError(f"{name}: card vs CPU sqrt(rel_mse) {rms} beyond "
+                             f"{BASELINE_PARITY_RMS_TOL}")
+    beside = {}
+    for label, path in committed.items():
+        saved = json.loads(path.read_text())
+        beside[label] = {"rows": {k: saved[k]["rel_mse"] for k in saved},
+                         "ratio": {k: every[k] / saved[k]["rel_mse"] for k in saved
+                                   if k in every}}
+    return {"rows": rows, "axis2_rows": rows2, "reference_s_per_task": ref_s,
+            "sweep_s": sweep_s, "jax_same_tasks": jax_same, "rel_to_jax": rel,
+            "jax_rtol": SWEEP_JAX_RTOL, "cpu_axis2_rows": cpu_rows,
+            "rms_diff": rms, "rms_tol": BASELINE_PARITY_RMS_TOL,
+            "committed_jax": beside, "t0": t0}
+
+
+def phase_solver_baseline_burgers():
+    """pipeline/baseline.sh's TD-Burgers command through cli/solver_baseline
+    on the card (FV reference at 512 in float64, 8 tasks, resolutions 16 to
+    256), then the num_tsteps axis at resolution 64 (_solver_family)."""
+    r = _solver_family("solver_baseline_burgers", BURGERS_SWEEP_FLAGS,
+                       BURGERS_SWEEP_RESOLUTIONS, BURGERS_SWEEP_AXIS2, JAX_BURGERS_SAME_TASKS,
+                       {"baselines/td_burgers": REPO / "baselines" / "td_burgers" /
+                        "errors_by_resolution.json",
+                        "baselines/td_burgers/sweep2axis": REPO / "baselines" / "td_burgers" /
+                        "sweep2axis" / "errors_by_resolution.json"})
+    emit("solver_baseline_burgers", r.pop("t0"), flags=BURGERS_SWEEP_FLAGS,
+         axis2=BURGERS_SWEEP_AXIS2, reduced=BURGERS_SWEEP_REDUCED, **r,
+         committed_note="baselines/td_burgers: other tasks (the JAX package's key chain); "
+         "sweep2axis at num_tsteps 201 and a reference at 1024: set beside, not held to")
+
+
+def phase_solver_baseline_elasticity():
+    """pipeline/baseline.sh's hyperelasticity command through
+    cli/solver_baseline on the card, cut (ELAS_SWEEP_REDUCED), then the
+    boundary_cap axis at resolution 8 (_solver_family); then one task's
+    solve at 32 timed on the host and the card's evaluate_p1 of its 1024
+    validation points timed apart (CUDA events)."""
+    r = _solver_family("solver_baseline_elasticity", ELAS_SWEEP_FLAGS, ELAS_SWEEP_RESOLUTIONS,
+                       ELAS_SWEEP_AXIS2, JAX_ELAS_SAME_TASKS,
+                       {"baselines/hyper_elasticity": REPO / "baselines" / "hyper_elasticity" /
+                        "errors_by_resolution.json",
+                        "baselines/hyper_elasticity/sweep2axis": REPO / "baselines" /
+                        "hyper_elasticity" / "sweep2axis" / "errors_by_resolution.json"})
+    cfg = parse_overrides(Config(), ELAS_SWEEP_FLAGS)
+    pde = get_pde(cfg.task)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    task = tuple(a.to("cuda") for a in pde.sample_params(gen))
+    pts = pde.sample_validation_points(gen, cfg.task.validation_points, task).to("cuda")
+    solve_s = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        gt = pde.solve(task, resolution=32)
+        torch.cuda.synchronize()
+        solve_s.append(time.perf_counter() - t1)
+    eval_ms = cuda_ms(lambda: pde.evaluate_gt(gt, pts))
+    emit("solver_baseline_elasticity", r.pop("t0"), flags=ELAS_SWEEP_FLAGS,
+         axis2=ELAS_SWEEP_AXIS2, reduced=ELAS_SWEEP_REDUCED, **r,
+         solve_host_s_at_32=solve_s[-1], evaluate_p1_card_ms=eval_ms,
+         evaluate_points=int(pts.shape[0]),
+         committed_note="baselines/hyper_elasticity: other tasks, the JAX package's "
+         "resolutions 12, 24, 48 (sweep2axis 8, 16, 32 by boundary_cap 48, 96, 192, 4 tasks): "
+         "set beside, not held to")
+
+
+def phase_gt_convergence_steady():
+    """cli/gt_convergence on one steady Burgers task at 16, 24 and 32
+    against its float64 reference at 48 (STEADY_CONV_REDUCED), on the card
+    and on the CPU (_solver_cpu): rel_mse falling
+    with resolution, within SWEEP_JAX_RTOL of the JAX package's on the
+    same task and points, card vs CPU sqrt(rel_mse) within
+    BASELINE_PARITY_RMS_TOL; the committed JSONL (4 other tasks, reference
+    at 96) printed beside."""
+    t0 = time.perf_counter()
+    _solver_cpu("gt_convergence_steady")
+    try:
+        t1 = time.perf_counter()
+        with io.StringIO() as buf, contextlib.redirect_stdout(buf):
+            card = gt_convergence.main(STEADY_CONV_ARGS)
+        card_s = time.perf_counter() - t1
+        cpu_rows = [json.loads(l) for l in _cpu_result("gt_convergence_steady").splitlines()
+                    if l.startswith('{"resolution"')]
+    finally:
+        _kill_children()
+    rows = {str(r["resolution"]): r["rel_mse"] for r in card}
+    mse = list(rows.values())
+    if not all(a > b for a, b in zip(mse, mse[1:])):
+        raise AssertionError(f"gt_convergence_steady: rel_mse {rows} not falling")
+    rel = _hold_to_jax("gt_convergence_steady", rows, JAX_STEADY_SAME_TASK)
+    rms = _rms_diffs(rows, {str(r["resolution"]): r["rel_mse"] for r in cpu_rows})
+    if not max(rms.values()) <= BASELINE_PARITY_RMS_TOL:
+        raise AssertionError(f"gt_convergence_steady: card vs CPU sqrt(rel_mse) {rms} beyond "
+                             f"{BASELINE_PARITY_RMS_TOL}")
+    committed = [json.loads(l) for l in STEADY_CONV_JSONL.read_text().splitlines()]
+    emit("gt_convergence_steady", t0, args=STEADY_CONV_ARGS, reduced=STEADY_CONV_REDUCED,
+         rows=rows, time_per_solve_s={str(r["resolution"]): r["time_per_solve_s"]
+                                      for r in card},
+         card_s=card_s, jax_same_task=JAX_STEADY_SAME_TASK, rel_to_jax=rel,
+         jax_rtol=SWEEP_JAX_RTOL, cpu=cpu_rows, rms_diff=rms, rms_tol=BASELINE_PARITY_RMS_TOL,
+         committed_jax=committed[-1]["rel_mse_by_resolution"],
+         committed_note="baselines/steady_burgers: 4 other tasks against 96; set beside")
 
 
 # --- the parallel layer: sharded meta-training over torch.distributed -----
@@ -2908,9 +3306,10 @@ MESH_LEAP_BARS = ("--grad_bar=1e-4", "--loss_bar=1e-5")
 MESH_TIMEOUT_S = 300
 
 
-def _run_json(cmd, timeout=MESH_TIMEOUT_S):
-    """cmd in a session of its own (_spawn); its last stdout line as JSON.
-    Every process it started is killed when it ends, fails or times out."""
+def _run_json(cmd, timeout=MESH_TIMEOUT_S, n_lines=1):
+    """cmd in a session of its own (_spawn); its last stdout line as JSON
+    (with n_lines > 1, a list of its last n_lines). Every process it started
+    is killed when it ends, fails or times out."""
     proc = _spawn(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         out, err = proc.communicate(timeout=timeout)
@@ -2919,7 +3318,8 @@ def _run_json(cmd, timeout=MESH_TIMEOUT_S):
     if proc.returncode != 0:
         raise AssertionError(f"{' '.join(cmd[:6])} ... exited {proc.returncode}: "
                              f"{err[-4000:]}")
-    return json.loads(out.strip().splitlines()[-1])
+    lines = [json.loads(l) for l in out.strip().splitlines()[-n_lines:]]
+    return lines if n_lines > 1 else lines[0]
 
 
 def _mesh_rows(line):
@@ -2940,24 +3340,30 @@ def _mesh_rows(line):
                      "idle_share": prof.get("idle_share"),
                      "nccl_device_ms": prof.get("nccl_device_ms"),
                      "max_memory_allocated_bytes": r0.get("max_memory_allocated_bytes"),
-                     "seconds": m["seconds"]})
+                     "seconds": m["seconds"], "stage_s": r0.get("stage_s")})
     ref = line["reference"]
     return {"rows": rows, "reference": {k: ref.get(k) for k in (
-        "steps_per_s", "draw_s_per_step", "params_norm_after_step", "mean_meta_loss")},
+        "steps_per_s", "draw_s_per_step", "params_norm_after_step", "mean_meta_loss",
+        "stage_s")},
         "grad_bar": line["grad_bar"], "loss_bar": line["loss_bar"], "tol": line["tol"],
         "seconds": line["seconds"]}
 
 
-def _smoke(*args):
-    return _run_json([sys.executable, "-m", "metapde_tpu_torch.cli.distributed_smoke",
-                      "--device=cuda", *args])
+def _smoke_cmd(*args):
+    return [sys.executable, "-m", "metapde_tpu_torch.cli.distributed_smoke", "--device=cuda",
+            *args]
+
+
+def _smoke(*args, n_lines=1):
+    return _run_json(_smoke_cmd(*args), n_lines=n_lines)
 
 
 def phase_mesh_train():
     """The parallel layer on the card, ranks in processes of their own
     (_spawn; gloo when they share the card, nccl when each has its own):
     (a) bench.py's flagship at full width through cli/distributed_smoke,
-    one outer step on the 2 x 2 mesh in f32 and in bf16 against the
+    one outer step on the 2 x 2 mesh in f32 and in bf16 (one launch of the
+    ranks, --compute_dtypes) against the
     one-process step on the same draws and card (meta-gradient
     within 1e-4 of each leaf's scale, losses rtol 1e-4; bf16 1e-2); (b)
     pipeline/maml_meta_3d.sh's config at full width (5x128, 2048 points)
@@ -2965,7 +3371,8 @@ def phase_mesh_train():
     alone writes the run files, val_rel_err finite and below
     P3D_TRAIN_BAR, one siren_fused launch (rank 0's) per validation call;
     (c) LEAP at lp2_4's width, one dp = 2 and one pt = 2 step against the
-    one-process step (LEAP's bars in cli/distributed_smoke). No process
+    one-process step (LEAP's bars in cli/distributed_smoke). (a), (b) and
+    (c) run at once on the one card, so their steps/s share it. No process
     is left behind."""
     t0 = time.perf_counter()
     if parse_overrides(Config(), FLAGSHIP_FLAGS) != train_bench.FLAGSHIP:
@@ -2973,30 +3380,45 @@ def phase_mesh_train():
     torch.cuda.empty_cache()
     parts, seconds = {}, {}
     t = time.perf_counter()
-    parts["flagship_f32"] = _mesh_rows(_smoke(f"--meshes={MESH_FLAGSHIP_MESHES}",
-                                              *FLAGSHIP_FLAGS, "--model.compute_dtype=null"))
-    parts["flagship_bf16"] = _mesh_rows(_smoke("--meshes=2x2", *FLAGSHIP_FLAGS))
-    for name in ("flagship_f32", "flagship_bf16"):
-        parts[name]["reduced"] = {"outer steps": "1 compared, 2 timed, 1 profiled"}
-    parts["flagship_f32"]["reduced"]["meshes"] = "2x1,1x2,2x2 -> 2x2"
-    seconds["a"] = time.perf_counter() - t
-
-    t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "out"
+        # (a), (b) and (c) at once, their ranks on the one card; (b) and (c)
+        # are spared by (a)'s cleanup until they are read
         proc = _spawn([sys.executable, "-m", "torch.distributed.run", "--standalone",
                        f"--nproc_per_node={MESH_P3D_RANKS}", "-m",
                        "metapde_tpu_torch.cli.maml_pde", *P3D_FLAGS, *MESH_P3D_FLAGS,
                        *(f"--{k}={v}" for k, v in P3D_TRAIN_CUTS.items()),
                        f"--train.out_dir={out}", "--train.expt_name=mesh"],
                       cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                      # the launcher's default is 1 thread a rank: the host draw
+                      # the launcher's default is 1 thread a rank: the host draw,
+                      # beside (a)'s and (c)'s ranks
                       env=dict(os.environ, OMP_NUM_THREADS=str(max(
-                          1, len(os.sched_getaffinity(0)) // MESH_P3D_RANKS))))
+                          1, len(os.sched_getaffinity(0)) // (2 * MESH_P3D_RANKS)))))
+        leap = _spawn(_smoke_cmd("--algo=leap", f"--from_run={LEAP_RUN}",
+                                 f"--meshes={MESH_LEAP_MESHES}", "--timed_steps=0",
+                                 *MESH_LEAP_BARS),
+                      cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        _AWAITED.extend((proc, leap))
         try:
+            # f32 and bf16 in one launch of the ranks: one start-up, one group
+            f32, bf16 = _smoke(f"--meshes={MESH_FLAGSHIP_MESHES}", *FLAGSHIP_FLAGS,
+                               "--compute_dtypes=null,bfloat16", n_lines=2)
+            seconds["a"] = time.perf_counter() - t
+            parts["leap"] = _mesh_rows(json.loads(
+                _awaited_output(leap, "mesh_train (c)", MESH_TIMEOUT_S).strip()
+                .splitlines()[-1]))
+            parts["leap"]["reduced"] = {"train.outer_steps": "60000 -> 1 compared"}
+            seconds["c"] = time.perf_counter() - t
             _, err = proc.communicate(timeout=MESH_TIMEOUT_S)
         finally:
+            for p in (proc, leap):
+                if p in _AWAITED:
+                    _AWAITED.remove(p)
             _kill_children()
+        parts["flagship_f32"], parts["flagship_bf16"] = _mesh_rows(f32), _mesh_rows(bf16)
+        for name in ("flagship_f32", "flagship_bf16"):
+            parts[name]["reduced"] = {"outer steps": "1 compared, 2 timed, 1 profiled"}
+        parts["flagship_f32"]["reduced"]["meshes"] = "2x1,1x2,2x2 -> 2x2"
         if proc.returncode != 0:
             raise AssertionError(f"the sharded poisson3d run exited {proc.returncode}: "
                                  f"{err[-4000:]}")
@@ -3040,14 +3462,8 @@ def phase_mesh_train():
                           "deployment_time": [r["deployment_time"] for r in recs],
                           "launches": launches, "validations": len(recs),
                           "reduced": MESH_P3D_REDUCED}
+    # (a), (b) and (c) together
     seconds["b"] = time.perf_counter() - t
-
-    t = time.perf_counter()
-    parts["leap"] = _mesh_rows(_smoke("--algo=leap", f"--from_run={LEAP_RUN}",
-                                      f"--meshes={MESH_LEAP_MESHES}", "--timed_steps=0",
-                                      *MESH_LEAP_BARS))
-    parts["leap"]["reduced"] = {"train.outer_steps": "60000 -> 1 compared"}
-    seconds["c"] = time.perf_counter() - t
     left = _descendants(os.getpid())
     if left:
         raise AssertionError(f"processes left behind: {left}")
@@ -3271,12 +3687,17 @@ PHASES = {
     "leap_elasticity_train": phase_leap_elasticity_train,
     "nn_deploy_burgers": phase_nn_deploy_burgers,
     "nn_deploy_elasticity": phase_nn_deploy_elasticity,
+    "solver_baseline_burgers": phase_solver_baseline_burgers,
+    "solver_baseline_elasticity": phase_solver_baseline_elasticity,
+    "gt_convergence_steady": phase_gt_convergence_steady,
 }
 
 
 def main(argv):
     phase_device()
     phase_build()
+    if not argv or "ground_truth_mg" in argv:
+        _gt_mg_cpu()
     if argv:
         for name in argv:
             PHASES[name]()
@@ -3284,13 +3705,14 @@ def main(argv):
     kern = phase_kernel()
     phase_parity()
     deploy_launches = phase_deploy()
-    gt_mg = phase_ground_truth_mg()
     deploy_mg_launches, deploy_mg_bf16_launches = phase_deploy_mg()
     phase_train_parity()
     phase_train_parity_bf16()
     phase_train_resume_jax()
     train = phase_train()
     bench = phase_train_bench()
+    # its CPU solve, started at the run's start, is done by now
+    gt_mg = phase_ground_truth_mg()
     phase_leap_parity()
     phase_leap_resume_jax()
     leap_deploy_launches, leap_deploy_adam_launches = phase_leap_deploy()
@@ -3320,6 +3742,12 @@ def main(argv):
     leap_elasticity_train = phase_leap_elasticity_train()
     nn_burgers = phase_nn_deploy_burgers()
     nn_elasticity = phase_nn_deploy_elasticity()
+    # the four solver phases' CPU sides start with the first (_solver_cpu);
+    # Poisson's card side is the shortest, so its CPU side has the longest
+    # to finish
+    phase_solver_baseline_burgers()
+    phase_solver_baseline_elasticity()
+    phase_gt_convergence_steady()
     phase_solver_baseline()
     mesh = phase_mesh_train()
     cascade = phase_elasticity_cascade()

@@ -3,9 +3,10 @@ processes on localhost (counterpart of metapde_tpu/cli/distributed_smoke.py).
 
 For each mesh DPxPT the orchestrator starts DP * PT rank processes on a
 free localhost port, each in a session of its own (killed when the
-orchestrator ends, fails or is sent SIGTERM); rank 0 of the first mesh
-first takes the unsharded step (the reference) before its process group
-starts. Each run builds the MAML driver from the same config and seed,
+orchestrator ends, fails or is sent SIGTERM), and consecutive meshes of
+one rank count share the launch and its process group; rank 0 of the
+first launch first takes the unsharded step (the reference) before its
+process group starts. Each run builds the MAML driver from the same config and seed,
 draws the first outer step on the host, takes its meta-gradient (grad_fn)
 and the step (step_core), then --timed_steps more steps; the ranks run
 the (dp, pt) mesh of parallel/. Rank 0 and the reference save
@@ -21,21 +22,31 @@ cpu_count / ranks intra-op threads.
     python -m metapde_tpu_torch.cli.distributed_smoke [--algo=maml|leap]
         [--num_processes=4] [--meshes=2x1,1x2,2x2] [--device=cuda|cpu]
         [--backend=nccl|gloo] [--tol=2e-5] [--timed_steps=2]
+        [--compute_dtypes=null,bfloat16]
         [config flags, e.g. --maml.bsize=16 or --from_run=DIR]
+
+--compute_dtypes=A,B takes each listed --model.compute_dtype in turn in
+the same rank processes (one start-up and one process group a mesh), each
+against its own one-process step and bars, and prints a line for each.
 
 --num_processes=N alone runs the (N/2 x 2) mesh. Without --backend the
 ranks take parallel/mesh.py's rule (nccl when every rank has its own card,
 gloo when they share one, gloo on the CPU). On a card, rank 0 also
 profiles one step: device launches, device-busy ms, idle share, and the
 device ms of NCCL's kernels; every rank counts its collectives (calls,
-bytes, host ms of the blocking calls). Prints one JSON line and exits 0
-only on agreement.
+bytes, host ms of the blocking calls). Each row's stage_s gives the
+seconds of its stages: build, the compared step, the timed steps and the
+profiled one; rank 0's also the start-up from the orchestrator's launch
+(interpreter and imports), the reference taken before its process group,
+and the group's start. Prints one JSON line and exits 0 only on
+agreement.
 """
 
 import argparse
 import atexit
 import contextlib
 import json
+import math
 import os
 import signal
 import socket
@@ -97,10 +108,19 @@ def _profile_step(fn):
             "nccl_kernels": len(nccl), "nccl_device_ms": sum(e.duration_ns() for e in nccl) / 1e6}
 
 
-def _measure(args, flags, device, mesh, backend):
+def _variants(args, flags):
+    """The config flags of each run a launch takes: one, or one per
+    --compute_dtypes value (appended as --model.compute_dtype)."""
+    if not args.compute_dtypes:
+        return [flags]
+    return [flags + [f"--model.compute_dtype={d}"] for d in args.compute_dtypes.split(",")]
+
+
+def _measure(args, flags, device, mesh, backend, tag=""):
     """Build on `mesh` ("1x1": unsharded, no process group), take the
     compared step, then the timed and the profiled steps; rank 0 saves
-    <out>/<mesh>.pt (meta-gradient, losses, its row). Returns the row."""
+    <out>/<mesh><tag>.pt (meta-gradient, losses, its row). Returns the
+    row."""
     from ..models.siren import mixed_precision_scope
     from ..parallel import mesh as mesh_mod
     from ..train import leap_driver, maml_driver
@@ -110,8 +130,17 @@ def _measure(args, flags, device, mesh, backend):
     cfg = parse_overrides(Config(), flags + [f"--mesh.n_task_shards={n_dp}",
                                              f"--mesh.n_point_shards={n_pt}"])
     maml = args.algo == "maml"
+    stage_s, t_stage = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t_stage
+        now = time.perf_counter()
+        stage_s[name] = now - t_stage
+        t_stage = now
+
     c = (maml_driver if maml else leap_driver).build(cfg, device)
     dev = c["device"]
+    stage("build")
 
     def sync():
         if dev.type == "cuda":
@@ -136,6 +165,7 @@ def _measure(args, flags, device, mesh, backend):
     out = c["step_core"](batch, *state)
     state = out[:n_state]
     pnorm, mloss = float(global_norm(state[0])), float(meta_of(out).mean())
+    stage("compared")
 
     steps, draws, coll = [], [], []
     for _ in range(args.timed_steps):
@@ -152,6 +182,7 @@ def _measure(args, flags, device, mesh, backend):
         draws.append(t1 - t0)
         cc = mesh_mod.collectives
         coll.append({"calls": cc.calls, "bytes": cc.bytes, "host_ms": cc.host_s * 1e3})
+    stage("timed")
     row = {"role": "reference" if c["mesh"] is None else f"rank{args.process_id}",
            "algo": args.algo, "mesh": mesh, "backend": backend, "device": str(dev),
            "params_norm_after_step": pnorm, "mean_meta_loss": mloss,
@@ -168,32 +199,52 @@ def _measure(args, flags, device, mesh, backend):
             row["profiled_step"] = _profile_step(lambda: c["step_core"](batch, *state))
             sync()
         row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+        stage("profiled")
     sync()
+    row["stage_s"] = stage_s
     if args.process_id == 0:
         cpu = lambda t: t.detach().float().cpu()  # noqa: E731
         torch.save({"grads": tree_map(cpu, grads), "losses": cpu(losses), "meta": cpu(meta),
-                    "row": row}, Path(args.out) / f"{mesh}.pt")
+                    "row": row}, Path(args.out) / f"{mesh}{tag}.pt")
     return row
 
 
 def worker_main(args, flags):
     """A rank; with --with_reference (rank 0 of the first mesh) it first
     takes the one-process step itself, before its process group starts,
-    which spares the reference a process of its own."""
+    which spares the reference a process of its own. With several
+    variants (--compute_dtypes) it takes each in turn, so the variants
+    share one start-up and one process group."""
     from ..device import resolve_device
     from ..parallel import mesh as mesh_mod
 
+    # seconds from the orchestrator's launch to here: interpreter, imports
+    start_s = time.time() - float(os.environ.get("SMOKE_LAUNCH_TIME", time.time()))
     device = resolve_device(args.device)
     # the ranks share the host's cores (the host draw, the CPU's kernels)
     torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // args.num_processes))
+    variants = _variants(args, flags)
+    t0 = time.perf_counter()
     if args.with_reference:
-        _measure(args, flags, device, "1x1", None)
+        for i, f in enumerate(variants):
+            _measure(args, f, device, "1x1", None, f"_{i}")
+    elif device.type == "cuda" and args.timed_steps:
+        # the profiler's first start in a process takes seconds: take it
+        # while rank 0 takes the reference, not in the profiled step
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+            torch.ones(1, device=device).add_(1)
+            torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
     backend = mesh_mod.initialize_distributed(
         args.coordinator, args.num_processes, args.process_id, backend=args.backend,
         device_type=device.type)
-    row = _measure(args, flags, device, args.mesh, backend)
+    t2 = time.perf_counter()
+    rows = [_measure(args, f, device, mesh, backend, f"_{i}")
+            for mesh in args.mesh.split(",") for i, f in enumerate(variants)]
+    rows[0]["stage_s"].update(start=start_s, reference=t1 - t0, process_group=t2 - t1)
     if args.process_id == 0:
-        print(json.dumps(row), flush=True)
+        for row in rows:
+            print(json.dumps(row), flush=True)
     torch.distributed.destroy_process_group()
 
 
@@ -228,8 +279,9 @@ class _Ranks:
         os._exit(128 + signum)
 
 
-def _run(ranks, cmds, env):
-    """Run the commands at once; returns the first one's last JSON line."""
+def _run(ranks, cmds, env, n_lines=1):
+    """Run the commands at once; returns the first one's last n_lines JSON
+    lines."""
     procs = [ranks.start(cmd, dict(env, **extra)) for cmd, extra in cmds]
     deadline = time.monotonic() + RUN_TIMEOUT_S
     try:
@@ -240,7 +292,7 @@ def _run(ranks, cmds, env):
         if p.returncode != 0:
             sys.stderr.write(err[-6000:])
             raise RuntimeError(f"process {i} of {len(procs)} exited {p.returncode}")
-    return json.loads(outs[0][0].strip().splitlines()[-1])
+    return [json.loads(l) for l in outs[0][0].strip().splitlines()[-n_lines:]]
 
 
 def orchestrate(args, flags):
@@ -251,44 +303,65 @@ def orchestrate(args, flags):
             f"--timed_steps={args.timed_steps}"]
     if args.backend:
         base.append(f"--backend={args.backend}")
+    if args.compute_dtypes:
+        base.append(f"--compute_dtypes={args.compute_dtypes}")
     meshes = args.meshes.split(",") if args.meshes else [f"{args.num_processes // 2}x2"]
-    bf16 = parse_overrides(Config(), flags).model.compute_dtype is not None
-    grad_bar = args.grad_bar or (1e-2 if bf16 else 1e-4 if args.algo == "maml" else 2e-2)
-    loss_bar = args.loss_bar or (1e-2 if bf16 else 1e-4 if args.algo == "maml" else 1e-5)
+    variants = _variants(args, flags)
+    bars = []
+    for f in variants:
+        bf16 = parse_overrides(Config(), f).model.compute_dtype is not None
+        bars.append((args.grad_bar or (1e-2 if bf16 else 1e-4 if args.algo == "maml" else 2e-2),
+                     args.loss_bar or (1e-2 if bf16 else 1e-4 if args.algo == "maml" else 1e-5)))
     ranks = _Ranks()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
         common = base + [f"--out={out}"]
-        rows, ok, ref = [], True, None
+        rows = [[] for _ in variants]
+        refs = [None for _ in variants]
+        # consecutive meshes of one rank count share a launch of the ranks
+        launches = []
         for mesh in meshes:
-            n_dp, n_pt = (int(x) for x in mesh.split("x"))
-            n = n_dp * n_pt
+            n = math.prod(int(x) for x in mesh.split("x"))
+            if launches and launches[-1][0] == n:
+                launches[-1][1].append(mesh)
+            else:
+                launches.append((n, [mesh]))
+        for n, group in launches:
             port = _free_port()
-            cmds = [(common + [f"--process_id={r}", f"--num_processes={n}", f"--mesh={mesh}",
+            cmds = [(common + [f"--process_id={r}", f"--num_processes={n}",
+                               f"--mesh={','.join(group)}",
                                f"--coordinator=tcp://127.0.0.1:{port}"]
-                     + (["--with_reference"] if ref is None and r == 0 else []) + flags,
+                     + (["--with_reference"] if refs[0] is None and r == 0 else []) + flags,
                      {"LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(n), "WORLD_SIZE": str(n)})
                     for r in range(n)]
             t1 = time.perf_counter()
-            row = _run(ranks, cmds, env)
-            if ref is None:
-                reference = torch.load(Path(out) / "1x1.pt")
-                ref = reference["row"]
-            got = torch.load(Path(out) / f"{mesh}.pt")
-            diffs = {k: abs(ref[k] - row[k]) / max(abs(ref[k]), 1e-12)
-                     for k in ("params_norm_after_step", "mean_meta_loss")}
-            errs = {"meta_grad_leaf_err": _leaf_err(got["grads"], reference["grads"]),
-                    "losses_rel": _rel(got["losses"], reference["losses"]),
-                    "meta_losses_rel": _rel(got["meta"], reference["meta"])}
-            agree = (all(d <= args.tol for d in diffs.values())
-                     and errs["meta_grad_leaf_err"] <= grad_bar
-                     and max(errs["losses_rel"], errs["meta_losses_rel"]) <= loss_bar)
-            ok = ok and agree
-            rows.append({"mesh": mesh, "ok": agree, "rel_diffs": diffs, **errs,
-                         "seconds": time.perf_counter() - t1, "rank0": row})
-    print(json.dumps({"ok": ok, "meshes": rows, "reference": ref, "tol": args.tol,
-                      "grad_bar": grad_bar, "loss_bar": loss_bar, "flags": flags,
-                      "seconds": time.perf_counter() - t0}), flush=True)
+            got_rows = _run(ranks, cmds, dict(env, SMOKE_LAUNCH_TIME=repr(time.time())),
+                            len(group) * len(variants))
+            seconds = time.perf_counter() - t1
+            for k, row in enumerate(got_rows):
+                mesh, i = group[k // len(variants)], k % len(variants)
+                if refs[i] is None:
+                    refs[i] = torch.load(Path(out) / f"1x1_{i}.pt")
+                ref = refs[i]["row"]
+                got = torch.load(Path(out) / f"{mesh}_{i}.pt")
+                diffs = {k: abs(ref[k] - row[k]) / max(abs(ref[k]), 1e-12)
+                         for k in ("params_norm_after_step", "mean_meta_loss")}
+                errs = {"meta_grad_leaf_err": _leaf_err(got["grads"], refs[i]["grads"]),
+                        "losses_rel": _rel(got["losses"], refs[i]["losses"]),
+                        "meta_losses_rel": _rel(got["meta"], refs[i]["meta"])}
+                grad_bar, loss_bar = bars[i]
+                agree = (all(d <= args.tol for d in diffs.values())
+                         and errs["meta_grad_leaf_err"] <= grad_bar
+                         and max(errs["losses_rel"], errs["meta_losses_rel"]) <= loss_bar)
+                rows[i].append({"mesh": mesh, "ok": agree, "rel_diffs": diffs, **errs,
+                                "seconds": seconds, "rank0": row})
+    ok = True
+    for i, f in enumerate(variants):
+        ok = ok and all(r["ok"] for r in rows[i])
+        print(json.dumps({"ok": all(r["ok"] for r in rows[i]), "meshes": rows[i],
+                          "reference": refs[i]["row"], "tol": args.tol, "grad_bar": bars[i][0],
+                          "loss_bar": bars[i][1], "flags": f,
+                          "seconds": time.perf_counter() - t0}), flush=True)
     return ok
 
 
@@ -303,6 +376,7 @@ def main(argv=None):
     p.add_argument("--grad_bar", type=float, default=None)
     p.add_argument("--loss_bar", type=float, default=None)
     p.add_argument("--timed_steps", type=int, default=2)
+    p.add_argument("--compute_dtypes", default=None)
     # set by the orchestrator in the processes it starts
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--coordinator", default=None)

@@ -30,6 +30,8 @@ class PdeDef(NamedTuple):
     evaluate_gt_hi: Callable = None  # evaluation matching solve_hi's order
     # (params list, resolution) -> ground truths of several tasks in one solve
     solve_batched: Callable = None
+    # (params list, resolution) -> solve_ref of several tasks in one solve
+    solve_ref_batched: Callable = None
     # (params, requested resolution) -> the resolution the oracle solves at
     effective_resolution: Callable = None
     # (params, resolution, warm_start, ref=False) -> a re-solve that starts

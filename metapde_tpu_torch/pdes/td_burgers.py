@@ -176,10 +176,15 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
     def solve(params, resolution=None, num_tsteps=None):
         return solve_batched([params], resolution, num_tsteps)[0]
 
-    def solve_ref(params, resolution=None, num_tsteps=None):
-        return fv_burgers.solve_x64(
-            params, resolution=resolution or 1024,
+    def solve_ref_batched(params_list, resolution=None, num_tsteps=None):
+        """The float64 FV solves of several tasks in one time loop (each
+        task's rows as its own solve's)."""
+        return fv_burgers.solve_batched(
+            params_list, dtype=torch.float64, resolution=resolution or 1024,
             num_tsteps=num_tsteps if num_tsteps is not None else cfg.num_tsteps, **fv_kw)
+
+    def solve_ref(params, resolution=None, num_tsteps=None):
+        return solve_ref_batched([params], resolution, num_tsteps)[0]
 
     def sample_validation_points(gen, n, params, gt=None):
         """Space random, time cycling through the solver's output grid."""
@@ -208,4 +213,5 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
         solve_batched=solve_batched,
         # the fem ground truth has no float64 path
         solve_ref=None if use_fem_gt else solve_ref,
+        solve_ref_batched=None if use_fem_gt else solve_ref_batched,
     )

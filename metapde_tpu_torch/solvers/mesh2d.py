@@ -224,17 +224,25 @@ def evaluate_p1(u_grid, coords_grid, elem_alive, bounds, x):
 
     v0, v1, v2 = rows(nodes_xy, n0), rows(nodes_xy, n1), rows(nodes_xy, n2)  # [..., 18, 2]
     alive = rows(elem_alive, eid)
+    # Sums and products of the mesh's own values stay in its dtype; any
+    # other term is in x's, each mesh value rounded into it first. That is
+    # the JAX package's type promotion when it evaluates a float64
+    # reference at f32 points (x64 off): an all-float64 score can choose
+    # another triangle near a pore chord and move the value by ~1e-2 of the
+    # field. A no-op when the dtypes agree.
+    dt = x.dtype
     d1 = v1 - v0
     d2 = v2 - v0
-    det = d1[..., 0] * d2[..., 1] - d1[..., 1] * d2[..., 0]
+    det = (d1[..., 0] * d2[..., 1] - d1[..., 1] * d2[..., 0]).to(dt)
+    d1, d2 = d1.to(dt), d2.to(dt)
     tiny = torch.where(det < 0, torch.full_like(det, -1e-12), torch.full_like(det, 1e-12))
     safe_det = torch.where(torch.abs(det) < 1e-12, tiny, det)
-    rx = px[..., None] - v0[..., 0]
-    ry = py[..., None] - v0[..., 1]
+    rx = px[..., None] - v0[..., 0].to(dt)
+    ry = py[..., None] - v0[..., 1].to(dt)
     l1 = (rx * d2[..., 1] - ry * d2[..., 0]) / safe_det
     l2 = (ry * d1[..., 0] - rx * d1[..., 1]) / safe_det
     l0 = 1.0 - l1 - l2
-    score = torch.minimum(torch.minimum(l0, l1), l2) - 10.0 * (1.0 - alive)
+    score = torch.minimum(torch.minimum(l0, l1), l2) - 10.0 * (1.0 - alive.to(dt))
     k = torch.argmax(score, dim=-1, keepdim=True)                          # [..., 1]
 
     def pick(t):
@@ -242,7 +250,7 @@ def evaluate_p1(u_grid, coords_grid, elem_alive, bounds, x):
 
     w0, w1, w2 = pick(l0), pick(l1), pick(l2)
     u0, u1, u2 = rows(nodes_u, pick(n0)), rows(nodes_u, pick(n1)), rows(nodes_u, pick(n2))
-    val = w0[..., None] * u0 + w1[..., None] * u1 + w2[..., None] * u2
+    val = w0[..., None] * u0.to(dt) + w1[..., None] * u1.to(dt) + w2[..., None] * u2.to(dt)
     far = (pick(score) < -0.5)[..., None]
-    near_avg = (u0 + u1 + u2) / 3.0
+    near_avg = (u0 + u1 + u2).to(dt) / 3.0
     return torch.where(far, near_avg, val)

@@ -54,13 +54,16 @@ def _values(pde, gt, pts):
 
 def reference(pde, params_list, gen, n_points: int, ref_res: int):
     """Reference solves at ref_res (the family's float64 solve_ref when it
-    has one: an f32 reference's own error would floor the sweep) and the
+    has one: an f32 reference's own error would floor the sweep; every task
+    in one solve_ref_batched call where the family has it) and the
     validation coords drawn from `gen` after each. Returns (coords list,
     reference values list [V, out] float64 numpy)."""
-    solve_ref = pde.solve_ref or pde.solve
+    if pde.solve_ref_batched is not None:
+        gts = pde.solve_ref_batched(params_list, resolution=ref_res)
+    else:
+        gts = [(pde.solve_ref or pde.solve)(p, resolution=ref_res) for p in params_list]
     coords, ref_vals = [], []
-    for params in params_list:
-        gt = solve_ref(params, resolution=ref_res)
+    for params, gt in zip(params_list, gts):
         pts = pde.sample_validation_points(gen, n_points, params, gt)
         coords.append(pts)
         ref_vals.append(_values(pde, gt, pts))
