@@ -279,8 +279,21 @@ Phases, each printing one JSON line (flushed) with its name and seconds:
               waits, both train on between them,
               val_rel_err finite and below 1e3, one siren_fused launch (rank
               0's) per validation call; steps/s, each rank's peak memory,
-              backend; (c) LEAP at lp2_4's width, one dp = 2 and one pt = 2
-              step against the one-process step; no process left behind
+              backend; (c) LEAP at lp2_4's width (bsize 2, 10 inner
+              steps), one dp = 2 and one pt = 2 step against the
+              one-process step; (d) the other families: (d1) one MAML
+              step of bm7_5's, em7_9's and sbi10_2's configs at full width
+              on 2 x 2, each against one process with (a)'s bars and
+              numbers, in (a)'s launch of the ranks (--variant), (d2)
+              (c)'s steps at ldb3_2's width in (c)'s launch, (d3)
+              cli/maml_pde on 2 x 2 through the launcher resumed from
+              bm7_5's checkpoint, 2 steps and one validation in
+              burgers_train's out_dir: rank 0 alone writes, 201 finite
+              per-timestep entries, one siren_fused launch (rank 0's) per
+              validation call, the wall kinds given whole on the mesh line,
+              and both eval tasks' ground truth read from burgers_train's
+              cache (solved when the phase runs alone); (a)-(d) at once,
+              no process left behind
  38 elasticity_cascade  the matrix-free cascade (solvers/fem_elasticity.py::
               solve): uniform compression (tests/test_elasticity.py:83-98)
               and one of em7_9's deployment tasks at resolution 12 on the
@@ -385,6 +398,7 @@ import io
 import json
 import math
 import os
+import shlex
 import shutil
 import signal
 import statistics
@@ -1916,16 +1930,29 @@ def phase_leap_burgers_deploy():
             LDB_KS, JAX_CPU_LDB_K80_MEDIAN, plan=plan)[0]
 
 
+_BURGERS_OUT = []
+
+
+def _burgers_out():
+    """The out_dir of burgers_train's runs (and its gt_cache_torch/), which
+    mesh_train's sharded bm7_5 run shares; removed when the process ends."""
+    if not _BURGERS_OUT:
+        _BURGERS_OUT.append(tempfile.TemporaryDirectory())
+    return Path(_BURGERS_OUT[0].name)
+
+
 def phase_burgers_train():
     """cli/maml_pde on a copy of bm7_5's config.json at its full width,
     resumed from its checkpoint_step_500001.pickle with both Adam states:
     10 outer steps, validation through the kernel against the FV ground
     truth (per-timestep error included), a final checkpoint; then a
-    resumed run() that must solve nothing, and the step's numbers."""
+    resumed run() that must solve nothing, and the step's numbers. Its
+    out_dir (_burgers_out) outlives the phase: mesh_train's sharded run
+    reads the ground truth it cached."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         src = _run_copy(tmp, BURGERS_RUN, ("config.json", BURGERS_CKPT.name))
-        out = Path(tmp) / "out"
+        out = _burgers_out()
         cuts = {**BURGERS_TRAIN_CUTS, **BURGERS_OVERRIDES}
         args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in cuts.items()),
                 f"--train.out_dir={out}"]
@@ -3288,20 +3315,35 @@ FLAGSHIP_FLAGS = ["--task.inner_points=1024", "--task.outer_points=1024",
                   "--model.compute_dtype=bfloat16", "--maml.bsize=16", "--maml.inner_steps=5",
                   "--maml.inner_lr=1e-4", "--maml.outer_lr=1e-5", "--maml.inner_grad_clip=100",
                   "--maml.grad_clip=100", "--maml.unroll=5", "--train.remat_inner_steps=false"]
-# the flagship on the 2 x 2 mesh, f32 and bf16 (2 x 1 and 1 x 2 cut in PR 15
-# to pay for the Burgers and hyperelasticity pipelines: the 2 x 2 mesh runs
-# both the task and the point collectives, and (c) keeps LEAP's one-axis
-# meshes; each flagship mesh took 45-50 s on one H100)
+# (a) the flagship on the 2 x 2 mesh, f32 and bf16 (2 x 1 and 1 x 2 cut
+# to pay for the Burgers and hyperelasticity pipelines: the 2 x 2
+# mesh runs both the task and the point collectives, and (c) keeps LEAP's
+# one-axis meshes; each flagship mesh took 45-50 s on one H100), and (d1)
+# one MAML step of bm7_5's, em7_9's and sbi10_2's configs (cli/distributed_
+# smoke's MAML bars, 1e-4): one launch of the ranks, 1 timed and 1 profiled
+# step each (the flagship's second timed step cut to pay for (d))
 MESH_FLAGSHIP_MESHES = "2x2"
+MESH_VARIANTS = {"flagship_f32": FLAGSHIP_FLAGS + ["--model.compute_dtype=null"],
+                 "flagship_bf16": FLAGSHIP_FLAGS,
+                 **{f"maml_{run.name}": [f"--from_run={run}"]
+                    for run in (BURGERS_RUN, EM_RUN, SB_RUN)}}
 MESH_P3D_RANKS = 2
 # pipeline/maml_meta_3d.sh's bsize 256 on 8 task shards, cut to 32 on 2
 MESH_P3D_FLAGS = ["--maml.bsize=32", f"--mesh.n_task_shards={MESH_P3D_RANKS}"]
 MESH_P3D_REDUCED = {"maml.bsize": "256 -> 32", "mesh.n_task_shards": "8 -> 2",
                     **{k: v for k, v in P3D_TRAIN_CUTS.items()}}
 MESH_LEAP_MESHES = "2x1,1x2"
+# (c) lp2_4 and (d2) ldb3_2 in one launch of the ranks, both cut as
+# leap_family_parity cuts (lp2_4's bsize 8 and 60 inner steps cut to pay
+# for (d))
+MESH_LEAP_RUNS = (LEAP_RUN, LDB_RUN)
+MESH_LEAP_REDUCED = {"leap.bsize": "8 -> 2 (lp2_4), 16 -> 2 (ldb3_2)",
+                     "leap.inner_steps": "60 -> 10 (lp2_4), 80 -> 10 (ldb3_2)",
+                     "outer steps": "1 compared"}
 # LEAP's bars at lp2_4's width, from measurement (this phase on one H100
 # 80GB HBM3 at 700 W: meta-gradient 3.0e-6 of a leaf's scale, losses 2.5e-7
-# relative), tighter than tests/test_torch_leap.py's parity bars (2e-2, 1e-5)
+# relative, at 60 inner steps; ldb3_2 at 10: 7.6e-7 and 9.2e-8), tighter
+# than tests/test_torch_leap.py's parity bars (2e-2, 1e-5)
 MESH_LEAP_BARS = ("--grad_bar=1e-4", "--loss_bar=1e-5")
 MESH_TIMEOUT_S = 300
 
@@ -3316,8 +3358,9 @@ def _run_json(cmd, timeout=MESH_TIMEOUT_S, n_lines=1):
     finally:
         _kill_children()
     if proc.returncode != 0:
+        # a disagreement exits 1 with the compared numbers on stdout
         raise AssertionError(f"{' '.join(cmd[:6])} ... exited {proc.returncode}: "
-                             f"{err[-4000:]}")
+                             f"{err[-4000:]}{out[-12000:]}")
     lines = [json.loads(l) for l in out.strip().splitlines()[-n_lines:]]
     return lines if n_lines > 1 else lines[0]
 
@@ -3358,22 +3401,135 @@ def _smoke(*args, n_lines=1):
     return _run_json(_smoke_cmd(*args), n_lines=n_lines)
 
 
+# (d3) cli/maml_pde on 2 x 2 resumed from bm7_5's checkpoint: 2 steps and
+# one validation, in burgers_train's out_dir, whose ground truth of the
+# same eval tasks it reads ((d1) shares (a)'s launch, (d2) (c)'s)
+MESH_BURGERS_MESH = (2, 2)
+MESH_BURGERS_CUTS = {"train.outer_steps": 500004, "train.steps_per_call": 2,
+                     "train.val_every": 2, "train.log_every": 2,
+                     "task.n_eval": BURGERS_TRAIN_CUTS["task.n_eval"]}
+# bm7_5's kinds (left and right walls, initial, domain) and those pt = 2
+# gives whole to every pt rank
+MESH_BURGERS_KINDS = "inner_points [63, 63] of [63, 63, 1010, 1008]"
+
+
+def _sharded_run(run, steps):
+    """The checks of a sharded cli/maml_pde run dir `run` whose last step
+    is steps[-1] + 1: rank 0 alone wrote it (one mesh and one done line in
+    log.txt, the run files), its validation records at `steps`, one
+    siren_fused launch (rank 0's) per validation call. Returns (records,
+    launches, peak memory by rank, the mesh line)."""
+    names = {p.name for p in run.iterdir()}
+    want = {"log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
+            f"checkpoint_step_{steps[-1] + 1}.pickle", "tb"}
+    if not want <= names or any(not n.startswith("checkpoint_step_") for n in names - want):
+        raise AssertionError(f"the sharded run dir holds {sorted(names)}; want "
+                             f"{sorted(want)} and periodic checkpoints")
+    log = (run / "log.txt").read_text().splitlines()
+    mesh_lines = [l for l in log if l.startswith("mesh: ")]
+    done = [l for l in log if l.startswith("done: ")]
+    if len(mesh_lines) != 1 or len(done) != 1:
+        raise AssertionError(f"log.txt has {len(mesh_lines)} mesh and {len(done)} done "
+                             "lines: not one writer")
+    recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+    if [r["step"] for r in recs] != list(steps):
+        raise AssertionError(f"validation records at {[r['step'] for r in recs]}")
+    words = done[0].split()
+    launches = int(words[words.index("process") + 1].rstrip(","))
+    if launches != len(recs):
+        raise AssertionError(f"rank 0 launched siren_fused {launches} times for "
+                             f"{len(recs)} validation calls")
+    return recs, launches, json.loads(done[0].split("by rank ", 1)[1]), mesh_lines[0]
+
+
+def _pipe(cmd, **env):
+    """_spawn(cmd) from the repo root with its output piped, awaited."""
+    proc = _spawn(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                  env=dict(os.environ, **env))
+    _AWAITED.append(proc)
+    return proc
+
+
+def _launcher(n_ranks, *args, threads=1):
+    """cli/maml_pde under torch.distributed.run with n_ranks ranks."""
+    return _pipe([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                  f"--nproc_per_node={n_ranks}", "-m", "metapde_tpu_torch.cli.maml_pde", *args],
+                 OMP_NUM_THREADS=str(threads))
+
+
+def _burgers_run_start(tmp):
+    """(d3)'s launcher; with the number of ground truths burgers_train
+    cached for it."""
+    src = _run_copy(tmp, BURGERS_RUN, ("config.json", BURGERS_CKPT.name))
+    cached = len(list((_burgers_out() / "gt_cache_torch").glob("*.npz")))
+    n_dp, n_pt = MESH_BURGERS_MESH
+    return _launcher(n_dp * n_pt, f"--from_run={src}",
+                     *(f"--{k}={v}" for k, v in {**MESH_BURGERS_CUTS,
+                                                  **BURGERS_OVERRIDES}.items()),
+                     f"--mesh.n_task_shards={n_dp}", f"--mesh.n_point_shards={n_pt}",
+                     f"--train.out_dir={_burgers_out()}", "--train.expt_name=mesh"), cached
+
+
+def _burgers_run_read(proc, cached):
+    """(d3)'s run dir, checked."""
+    _awaited_output(proc, "mesh_train (d3)", MESH_TIMEOUT_S)
+    run = _burgers_out() / "mesh"
+    last = MESH_BURGERS_CUTS["train.outer_steps"]
+    recs, launches, peaks, mesh_line = _sharded_run(run, [last - 1])
+    if MESH_BURGERS_KINDS not in mesh_line:
+        raise AssertionError(f"the mesh line does not give {MESH_BURGERS_KINDS} whole: "
+                             f"{mesh_line}")
+    nt = load_run_config(str(BURGERS_RUN)).task.num_tsteps
+    for r in recs:
+        pts = r["per_time_step_error"]
+        if len(pts) != nt or not all(math.isfinite(v) for v in pts):
+            raise AssertionError(f"step {r['step']}: per_time_step_error has {len(pts)} "
+                                 f"entries (expected {nt} finite)")
+        if not (math.isfinite(r["meta_loss"]) and r["val_rel_err"] < 1e-2):
+            raise AssertionError(f"step {r['step']}: meta_loss {r['meta_loss']}, "
+                                 f"val_rel_err {r['val_rel_err']}")
+    n_eval = MESH_BURGERS_CUTS["task.n_eval"]
+    gt = _gt_log(run)
+    # burgers_train cached these eval tasks' ground truth, unless the phase
+    # runs without it (python3 chip_smoke.py mesh_train): then it solves
+    if gt != ((0, n_eval) if cached >= n_eval else (n_eval, 0)):
+        raise AssertionError(f"ground truth (solved, read) {gt} with {cached} cached")
+    return {
+        "mesh": "x".join(map(str, MESH_BURGERS_MESH)), "launches": launches,
+        "validations": len(recs), "gt_solved_read": gt,
+        "steps_per_s": 1.0 / statistics.mean(r["step_time"] for r in recs),
+        "step_time": [r["step_time"] for r in recs],
+        "val_rel_err": [r["val_rel_err"] for r in recs],
+        "per_time_step_error_max": [max(r["per_time_step_error"]) for r in recs],
+        "deployment_time": [r["deployment_time"] for r in recs],
+        "max_memory_allocated_bytes_by_rank": peaks, "mesh_line": mesh_line,
+        "reduced": {"train.outer_steps": "500001 + 2", **{
+            k: v for k, v in MESH_BURGERS_CUTS.items() if k != "train.outer_steps"}}}
+
+
 def phase_mesh_train():
     """The parallel layer on the card, ranks in processes of their own
     (_spawn; gloo when they share the card, nccl when each has its own):
     (a) bench.py's flagship at full width through cli/distributed_smoke,
-    one outer step on the 2 x 2 mesh in f32 and in bf16 (one launch of the
-    ranks, --compute_dtypes) against the
+    one outer step on the 2 x 2 mesh in f32 and in bf16 against the
     one-process step on the same draws and card (meta-gradient
     within 1e-4 of each leaf's scale, losses rtol 1e-4; bf16 1e-2); (b)
     pipeline/maml_meta_3d.sh's config at full width (5x128, 2048 points)
     through the launcher and cli/maml_pde on dp = 2 at bsize 32: rank 0
     alone writes the run files, val_rel_err finite and below
     P3D_TRAIN_BAR, one siren_fused launch (rank 0's) per validation call;
-    (c) LEAP at lp2_4's width, one dp = 2 and one pt = 2 step against the
-    one-process step (LEAP's bars in cli/distributed_smoke). (a), (b) and
-    (c) run at once on the one card, so their steps/s share it. No process
-    is left behind."""
+    (c) LEAP at lp2_4's width (bsize 2, 10 inner steps), one dp = 2 and one
+    pt = 2 step against the one-process step (MESH_LEAP_BARS); (d) the
+    other families: (d1) one MAML step of bm7_5's, em7_9's and sbi10_2's
+    configs at full width on 2 x 2 against one process, with (a)'s bars, in
+    (a)'s launch of the ranks (--variant), (d2) the same LEAP steps as (c)
+    at ldb3_2's width, in (c)'s launch, (d3) cli/maml_pde on 2 x 2
+    through the launcher resumed from bm7_5's checkpoint: rank 0 alone
+    writes, 201 finite per-timestep entries, one siren_fused launch (rank
+    0's) per validation call, the pt split's whole kinds on the mesh line,
+    and no ground truth solved that burgers_train cached. (a)-(d) run at
+    once on the one card, so their steps/s share it. No process is left
+    behind."""
     t0 = time.perf_counter()
     if parse_overrides(Config(), FLAGSHIP_FLAGS) != train_bench.FLAGSHIP:
         raise AssertionError("FLAGSHIP_FLAGS no longer parse to train_bench.FLAGSHIP")
@@ -3382,99 +3538,81 @@ def phase_mesh_train():
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "out"
-        # (a), (b) and (c) at once, their ranks on the one card; (b) and (c)
-        # are spared by (a)'s cleanup until they are read
-        proc = _spawn([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                       f"--nproc_per_node={MESH_P3D_RANKS}", "-m",
-                       "metapde_tpu_torch.cli.maml_pde", *P3D_FLAGS, *MESH_P3D_FLAGS,
-                       *(f"--{k}={v}" for k, v in P3D_TRAIN_CUTS.items()),
-                       f"--train.out_dir={out}", "--train.expt_name=mesh"],
-                      cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                      # the launcher's default is 1 thread a rank: the host draw,
-                      # beside (a)'s and (c)'s ranks
-                      env=dict(os.environ, OMP_NUM_THREADS=str(max(
-                          1, len(os.sched_getaffinity(0)) // (2 * MESH_P3D_RANKS)))))
-        leap = _spawn(_smoke_cmd("--algo=leap", f"--from_run={LEAP_RUN}",
-                                 f"--meshes={MESH_LEAP_MESHES}", "--timed_steps=0",
-                                 *MESH_LEAP_BARS),
-                      cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        _AWAITED.extend((proc, leap))
+        # every part at once, their ranks on the one card; the others are
+        # spared by (a)'s cleanup until they are read
+        procs = {}
+        procs["d3"], cached = _burgers_run_start(tmp)
+        procs["b"] = _launcher(
+            MESH_P3D_RANKS, *P3D_FLAGS, *MESH_P3D_FLAGS,
+            *(f"--{k}={v}" for k, v in P3D_TRAIN_CUTS.items()),
+            f"--train.out_dir={out}", "--train.expt_name=mesh",
+            # the launcher's default is 1 thread a rank: the host draw,
+            # beside the other parts' ranks
+            threads=max(1, len(os.sched_getaffinity(0)) // (2 * MESH_P3D_RANKS)))
+        procs["c"] = _pipe(_smoke_cmd(
+            "--algo=leap", *(f"--variant={shlex.join([f'--from_run={r}'])}"
+                             for r in MESH_LEAP_RUNS),
+            f"--meshes={MESH_LEAP_MESHES}", "--timed_steps=0", *LEAP_FAMILY_PARITY_CUTS,
+            *MESH_LEAP_BARS))
         try:
-            # f32 and bf16 in one launch of the ranks: one start-up, one group
-            f32, bf16 = _smoke(f"--meshes={MESH_FLAGSHIP_MESHES}", *FLAGSHIP_FLAGS,
-                               "--compute_dtypes=null,bfloat16", n_lines=2)
+            # (a) and (d1) in one launch of the ranks: one start-up, one group
+            lines = _smoke(f"--meshes={MESH_FLAGSHIP_MESHES}", "--timed_steps=1",
+                           *(f"--variant={shlex.join(v)}" for v in MESH_VARIANTS.values()),
+                           n_lines=len(MESH_VARIANTS))
+            for name, line in zip(MESH_VARIANTS, lines):
+                timed = "1 timed (cut from 2)" if name.startswith("flagship") else "1 timed"
+                parts[name] = {**_mesh_rows(line),
+                               "reduced": {"outer steps": f"1 compared, {timed}, 1 profiled"}}
             seconds["a"] = time.perf_counter() - t
-            parts["leap"] = _mesh_rows(json.loads(
-                _awaited_output(leap, "mesh_train (c)", MESH_TIMEOUT_S).strip()
-                .splitlines()[-1]))
-            parts["leap"]["reduced"] = {"train.outer_steps": "60000 -> 1 compared"}
+            lines = _awaited_output(procs["c"], "mesh_train (c), (d2)",
+                                    MESH_TIMEOUT_S).strip().splitlines()
+            for name, line in zip(("leap", "leap_ldb3_2"), lines[-len(MESH_LEAP_RUNS):]):
+                parts[name] = {**_mesh_rows(json.loads(line)), "reduced": MESH_LEAP_REDUCED}
             seconds["c"] = time.perf_counter() - t
-            _, err = proc.communicate(timeout=MESH_TIMEOUT_S)
+            _awaited_output(procs["b"], "mesh_train (b)", MESH_TIMEOUT_S)
+            seconds["b"] = time.perf_counter() - t
+            last = P3D_TRAIN_CUTS["train.outer_steps"]
+            recs, launches, peaks, mesh_line = _sharded_run(out / "mesh", [1, last - 1])
+            parts["burgers_run"] = _burgers_run_read(procs["d3"], cached)
+            seconds["d3"] = time.perf_counter() - t
         finally:
-            for p in (proc, leap):
+            for p in procs.values():
                 if p in _AWAITED:
                     _AWAITED.remove(p)
             _kill_children()
-        parts["flagship_f32"], parts["flagship_bf16"] = _mesh_rows(f32), _mesh_rows(bf16)
-        for name in ("flagship_f32", "flagship_bf16"):
-            parts[name]["reduced"] = {"outer steps": "1 compared, 2 timed, 1 profiled"}
-        parts["flagship_f32"]["reduced"]["meshes"] = "2x1,1x2,2x2 -> 2x2"
-        if proc.returncode != 0:
-            raise AssertionError(f"the sharded poisson3d run exited {proc.returncode}: "
-                                 f"{err[-4000:]}")
-        run = out / "mesh"
-        last = P3D_TRAIN_CUTS["train.outer_steps"]
-        names = {p.name for p in run.iterdir()}
-        want = {"log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
-                f"checkpoint_step_{last}.pickle", "tb"}
-        if not want <= names or any(not n.startswith("checkpoint_step_")
-                                    for n in names - want):
-            raise AssertionError(f"the sharded run dir holds {sorted(names)}; want "
-                                 f"{sorted(want)} and periodic checkpoints")
-        log = (run / "log.txt").read_text().splitlines()
-        mesh_lines = [l for l in log if l.startswith("mesh: ")]
-        done = [l for l in log if l.startswith("done: ")]
-        if len(mesh_lines) != 1 or len(done) != 1:
-            raise AssertionError(f"log.txt has {len(mesh_lines)} mesh and {len(done)} done "
-                                 "lines: not one writer")
-        recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
-        if [r["step"] for r in recs] != [1, 3]:
-            raise AssertionError(f"validation records at {[r['step'] for r in recs]}")
-        for r in recs:
-            if not (math.isfinite(r["val_rel_err"]) and r["val_rel_err"] < P3D_TRAIN_BAR
-                    and math.isfinite(r["meta_loss"])):
-                raise AssertionError(f"step {r['step']}: val_rel_err {r['val_rel_err']}, "
-                                     f"meta_loss {r['meta_loss']}")
-        words = done[0].split()
-        launches = int(words[words.index("process") + 1].rstrip(","))
-        peaks = json.loads(done[0].split("by rank ", 1)[1])
-        if launches != len(recs):
-            raise AssertionError(f"rank 0 launched siren_fused {launches} times for "
-                                 f"{len(recs)} validation calls")
-        backend = mesh_lines[0].split("backend ", 1)[1].split(",")[0]
-    step_s = statistics.mean(r["step_time"] for r in recs)
-    parts["poisson3d"] = {"backend": backend, "ranks": MESH_P3D_RANKS,
-                          "steps_per_s": 1.0 / step_s, "step_time": [r["step_time"] for r in
-                                                                     recs],
-                          "max_memory_allocated_bytes_by_rank": peaks,
-                          "val_rel_err": [r["val_rel_err"] for r in recs],
-                          "meta_loss": [r["meta_loss"] for r in recs],
-                          "deployment_time": [r["deployment_time"] for r in recs],
-                          "launches": launches, "validations": len(recs),
-                          "reduced": MESH_P3D_REDUCED}
-    # (a), (b) and (c) together
-    seconds["b"] = time.perf_counter() - t
+    parts["flagship_f32"]["reduced"]["meshes"] = "2x1,1x2,2x2 -> 2x2"
+    for r in recs:
+        if not (math.isfinite(r["val_rel_err"]) and r["val_rel_err"] < P3D_TRAIN_BAR
+                and math.isfinite(r["meta_loss"])):
+            raise AssertionError(f"step {r['step']}: val_rel_err {r['val_rel_err']}, "
+                                 f"meta_loss {r['meta_loss']}")
+    parts["poisson3d"] = {
+        "backend": mesh_line.split("backend ", 1)[1].split(",")[0],
+        "ranks": MESH_P3D_RANKS,
+        "steps_per_s": 1.0 / statistics.mean(r["step_time"] for r in recs),
+        "step_time": [r["step_time"] for r in recs],
+        "max_memory_allocated_bytes_by_rank": peaks,
+        "val_rel_err": [r["val_rel_err"] for r in recs],
+        "meta_loss": [r["meta_loss"] for r in recs],
+        "deployment_time": [r["deployment_time"] for r in recs],
+        "launches": launches, "validations": len(recs), "reduced": MESH_P3D_REDUCED}
+    seconds["all"] = time.perf_counter() - t
     left = _descendants(os.getpid())
     if left:
         raise AssertionError(f"processes left behind: {left}")
     cards = torch.cuda.device_count()
     emit("mesh_train", t0, cards=cards, seconds=seconds, **parts)
-    failed = [(name, r["mesh"]) for name in ("flagship_f32", "flagship_bf16", "leap")
-              for r in parts[name]["rows"] if not r["ok"]]
+    failed = [(name, r["mesh"]) for name, part in parts.items() if "rows" in part
+              for r in part["rows"] if not r["ok"]]
     if failed:
         raise AssertionError(f"sharded steps disagree with the one-process step: {failed}")
-    return {"launches": launches, "poisson3d": parts["poisson3d"],
-            "flagship_f32": parts["flagship_f32"]["rows"], "seconds": seconds}
+    return {"launches": launches + parts["burgers_run"]["launches"],
+            "poisson3d_launches": launches,
+            "burgers_run_launches": parts["burgers_run"]["launches"],
+            "poisson3d": parts["poisson3d"], "burgers_run": parts["burgers_run"],
+            "flagship_f32": parts["flagship_f32"]["rows"],
+            "families": {k: parts[k]["rows"] for k in parts if k.startswith(("maml_", "leap_"))},
+            "seconds": seconds}
 
 
 # The matrix-free elasticity cascade (solvers/fem_elasticity.py::solve):
@@ -3812,8 +3950,10 @@ def main(argv):
             "tasks", "n", "max_abs_err", *timing_keys, "resident", "smem_bytes",
             "blocks_per_sm", "n_sm")}
            for case, row in (("nn_maml", "main_path"), ("nn_leap", "nn_leap_path"))},
-        # the sharded poisson3d run (rank 0's validation calls)
+        # the sharded poisson3d and bm7_5 runs (rank 0's validation calls)
         "mesh_train_launches": mesh["launches"],
+        "mesh_train_poisson3d_launches": mesh["poisson3d_launches"],
+        "mesh_train_burgers_launches": mesh["burgers_run_launches"],
         # the paper's Burgers and hyperelasticity pipelines (PR 15)
         "leap_burgers_train_launches": leap_burgers_train["launches"],
         "leap_elasticity_train_launches": leap_elasticity_train["launches"],

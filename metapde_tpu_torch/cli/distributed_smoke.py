@@ -4,12 +4,13 @@ processes on localhost (counterpart of metapde_tpu/cli/distributed_smoke.py).
 For each mesh DPxPT the orchestrator starts DP * PT rank processes on a
 free localhost port, each in a session of its own (killed when the
 orchestrator ends, fails or is sent SIGTERM), and consecutive meshes of
-one rank count share the launch and its process group; rank 0 of the
-first launch first takes the unsharded step (the reference) before its
-process group starts. Each run builds the MAML driver from the same config and seed,
+one rank count share the launch and its process group; before the first
+launch's process group starts, its ranks take the unsharded step (the
+reference) of each variant, variant i on rank i mod ranks, in parallel.
+Each run builds the MAML driver from the same config and seed,
 draws the first outer step on the host, takes its meta-gradient (grad_fn)
 and the step (step_core), then --timed_steps more steps; the ranks run
-the (dp, pt) mesh of parallel/. Rank 0 and the reference save
+the (dp, pt) mesh of parallel/. Rank 0 and each reference save
 their meta-gradient and losses; the orchestrator holds the sharded ones
 against the reference's: params_norm_after_step and mean_meta_loss within
 --tol relative (2e-5, as in the JAX package), every meta-gradient leaf
@@ -22,22 +23,28 @@ cpu_count / ranks intra-op threads.
     python -m metapde_tpu_torch.cli.distributed_smoke [--algo=maml|leap]
         [--num_processes=4] [--meshes=2x1,1x2,2x2] [--device=cuda|cpu]
         [--backend=nccl|gloo] [--tol=2e-5] [--timed_steps=2]
-        [--compute_dtypes=null,bfloat16]
+        [--variant="FLAGS" ...]
         [config flags, e.g. --maml.bsize=16 or --from_run=DIR]
 
---compute_dtypes=A,B takes each listed --model.compute_dtype in turn in
-the same rank processes (one start-up and one process group a mesh), each
-against its own one-process step and bars, and prints a line for each.
+Each --variant="FLAGS" (repeatable; FLAGS are config flags, quoted as a
+shell quotes them, appended to the common config flags) is a run the
+launch takes in turn in the same rank processes (one start-up and one
+process group a mesh), each against its own one-process step and bars,
+with a line printed for each: e.g. --variant=--model.compute_dtype=null
+--variant=--model.compute_dtype=bfloat16 for both dtypes, or
+--variant=--from_run=A --variant=--from_run=B for two runs' configs.
 
 --num_processes=N alone runs the (N/2 x 2) mesh. Without --backend the
 ranks take parallel/mesh.py's rule (nccl when every rank has its own card,
 gloo when they share one, gloo on the CPU). On a card, rank 0 also
-profiles one step: device launches, device-busy ms, idle share, and the
-device ms of NCCL's kernels; every rank counts its collectives (calls,
+profiles one step of each mesh while the other ranks take it unprofiled
+(a reference profiles none): device launches, device-busy ms, idle
+share, and the device ms of NCCL's kernels; every rank counts its
+collectives (calls,
 bytes, host ms of the blocking calls). Each row's stage_s gives the
 seconds of its stages: build, the compared step, the timed steps and the
 profiled one; rank 0's also the start-up from the orchestrator's launch
-(interpreter and imports), the reference taken before its process group,
+(interpreter and imports), the references it took before its process group,
 and the group's start. Prints one JSON line and exits 0 only on
 agreement.
 """
@@ -48,6 +55,7 @@ import contextlib
 import json
 import math
 import os
+import shlex
 import signal
 import socket
 import statistics
@@ -109,11 +117,9 @@ def _profile_step(fn):
 
 
 def _variants(args, flags):
-    """The config flags of each run a launch takes: one, or one per
-    --compute_dtypes value (appended as --model.compute_dtype)."""
-    if not args.compute_dtypes:
-        return [flags]
-    return [flags + [f"--model.compute_dtype={d}"] for d in args.compute_dtypes.split(",")]
+    """The config flags of each run a launch takes: the common flags, with
+    each --variant's appended."""
+    return [flags + shlex.split(v) for v in args.variant] if args.variant else [flags]
 
 
 def _measure(args, flags, device, mesh, backend, tag=""):
@@ -190,19 +196,23 @@ def _measure(args, flags, device, mesh, backend, tag=""):
     if steps:
         row.update(steps_per_s=1.0 / statistics.mean(steps),
                    draw_s_per_step=statistics.mean(draws), collectives_per_step=coll[-1])
-    if dev.type == "cuda" and steps:
+    if dev.type == "cuda" and steps and c["mesh"] is not None:
         batch = c["draw_step_inputs"](gen)
         sync()
         # twice, the second kept: the profiler's first start in a process takes
-        # seconds, which a collective of the other ranks would spin through
+        # seconds, which a collective of the other ranks would spin through;
+        # only rank 0's profile is printed, so the others take the step bare
         for _ in range(2):
-            row["profiled_step"] = _profile_step(lambda: c["step_core"](batch, *state))
+            if args.process_id == 0:
+                row["profiled_step"] = _profile_step(lambda: c["step_core"](batch, *state))
+            else:
+                c["step_core"](batch, *state)
             sync()
         row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
         stage("profiled")
     sync()
     row["stage_s"] = stage_s
-    if args.process_id == 0:
+    if args.process_id == 0 or c["mesh"] is None:
         cpu = lambda t: t.detach().float().cpu()  # noqa: E731
         torch.save({"grads": tree_map(cpu, grads), "losses": cpu(losses), "meta": cpu(meta),
                     "row": row}, Path(args.out) / f"{mesh}{tag}.pt")
@@ -210,11 +220,12 @@ def _measure(args, flags, device, mesh, backend, tag=""):
 
 
 def worker_main(args, flags):
-    """A rank; with --with_reference (rank 0 of the first mesh) it first
-    takes the one-process step itself, before its process group starts,
-    which spares the reference a process of its own. With several
-    variants (--compute_dtypes) it takes each in turn, so the variants
-    share one start-up and one process group."""
+    """A rank; with --with_reference (the ranks of the first launch) it
+    first takes the one-process step of its share of the variants (i mod
+    ranks), before its process group starts, which spares the references
+    processes of their own and takes them in parallel. With several
+    variants (--variant) it takes each in turn, so the variants share one
+    start-up and one process group."""
     from ..device import resolve_device
     from ..parallel import mesh as mesh_mod
 
@@ -227,10 +238,11 @@ def worker_main(args, flags):
     t0 = time.perf_counter()
     if args.with_reference:
         for i, f in enumerate(variants):
-            _measure(args, f, device, "1x1", None, f"_{i}")
-    elif device.type == "cuda" and args.timed_steps:
+            if i % args.num_processes == args.process_id:
+                _measure(args, f, device, "1x1", None, f"_{i}")
+    if device.type == "cuda" and args.timed_steps and args.process_id == 0:
         # the profiler's first start in a process takes seconds: take it
-        # while rank 0 takes the reference, not in the profiled step
+        # before the process group, not in the profiled step
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
             torch.ones(1, device=device).add_(1)
             torch.cuda.synchronize(device)
@@ -303,8 +315,7 @@ def orchestrate(args, flags):
             f"--timed_steps={args.timed_steps}"]
     if args.backend:
         base.append(f"--backend={args.backend}")
-    if args.compute_dtypes:
-        base.append(f"--compute_dtypes={args.compute_dtypes}")
+    base += [f"--variant={v}" for v in args.variant or ()]
     meshes = args.meshes.split(",") if args.meshes else [f"{args.num_processes // 2}x2"]
     variants = _variants(args, flags)
     bars = []
@@ -331,7 +342,7 @@ def orchestrate(args, flags):
             cmds = [(common + [f"--process_id={r}", f"--num_processes={n}",
                                f"--mesh={','.join(group)}",
                                f"--coordinator=tcp://127.0.0.1:{port}"]
-                     + (["--with_reference"] if refs[0] is None and r == 0 else []) + flags,
+                     + (["--with_reference"] if refs[0] is None else []) + flags,
                      {"LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(n), "WORLD_SIZE": str(n)})
                     for r in range(n)]
             t1 = time.perf_counter()
@@ -376,7 +387,7 @@ def main(argv=None):
     p.add_argument("--grad_bar", type=float, default=None)
     p.add_argument("--loss_bar", type=float, default=None)
     p.add_argument("--timed_steps", type=int, default=2)
-    p.add_argument("--compute_dtypes", default=None)
+    p.add_argument("--variant", action="append")
     # set by the orchestrator in the processes it starts
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--coordinator", default=None)
@@ -384,7 +395,7 @@ def main(argv=None):
     p.add_argument("--out", default=None)
     p.add_argument("--with_reference", action="store_true")
     args, flags = p.parse_known_args(argv)
-    if not any(f.startswith("--from_run=") for f in flags):
+    if not args.variant and not any(f.startswith("--from_run=") for f in flags):
         flags = DEFAULT_FLAGS + flags
     if args.process_id is None:
         sys.exit(0 if orchestrate(args, flags) else 1)

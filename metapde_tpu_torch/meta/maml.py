@@ -34,8 +34,14 @@ meta-gradient: each rank backpropagates its LOCAL meta-loss (the backward
 of AllReduceSum sums the ranks' cotangents; seeding it with an already
 reduced loss would count each one n_pt times), then the parameter and LR
 gradients are averaged over pt. The logged losses, meta-losses and outer
-aux are separate, non-differentiable pt means. With remat the collective
-runs again in the backward, in the same order on every rank.
+aux are separate, non-differentiable pt means. Under pt the rollout takes
+no remat: torch.utils.checkpoint would run each step's collective again in
+the backward, from autograd nodes that its recompute creates on the CUDA
+device thread, whose order against the backward's own collectives (the
+same size) follows that thread's history; ranks with other histories (rank
+0 validates, or took another config's step) then paired different tensors
+in one all_reduce, a meta-gradient 1e4-1e6 times too large on the card
+(the CPU runs the whole backward on the calling thread).
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -167,7 +173,7 @@ def _batched_rollout(maml_def: MamlDef, task_loss: Callable, batch: TaskBatch,
             outer, _ = vloss(new, outer_pts, batch.task_params)
         return new, loss.detach(), outer
 
-    if maml_def.remat and create_graph:
+    if maml_def.remat and create_graph and maml_def.pt_axis is None:
         plain_step = step
 
         def step(*args):

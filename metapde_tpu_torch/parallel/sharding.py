@@ -7,10 +7,23 @@ Every rank runs the same step on its share of one outer step's draws:
   from the same replicated params; the task-mean meta-gradient is averaged
   over dp and the per-task losses are gathered over dp, so every rank holds
   the global [T, K + 1] losses (JAX's out_specs=P(TASK_AXIS)).
-- pt: rank (., i_pt) keeps part i_pt of n_pt equal parts of every point
-  kind's point axis, so every point is used by exactly one pt shard; the
-  engine (meta/maml.py, meta/leap.py) averages each inner gradient, each
-  logged loss and the meta-gradient over pt.
+- pt: rank (., i_pt) keeps part i_pt of n_pt equal parts of the point axis
+  of every point kind whose count n_pt divides, and the whole of every
+  other kind (TD-Burgers' 63 wall points, steady Burgers' 85 inlet points);
+  the engine (meta/maml.py, meta/leap.py) averages each inner gradient,
+  each logged loss and the meta-gradient over pt.
+
+Why the pt rule is exact: every loss term is a mean over one kind (or over
+a pool of kinds, see below), and the engine takes the pt mean of each
+rank's losses and gradients. The pt mean of n_pt equal parts' means is the
+whole kind's mean; the pt mean of n_pt copies of a whole kind's mean is
+that mean. A loss term that takes one mean over several kinds (steady
+Burgers' no-slip term over its walls and pore rings, PdeDef.pooled_kinds)
+stays exact only when its kinds are all split or all whole, so such a pool
+is split only when n_pt divides the count of each of its kinds. The kinds
+given whole cost each pt rank their whole forward and backward; they are
+the small boundary kinds, which need u only (the run's `mesh:` line in
+log.txt lists them).
 
 Draws: every rank draws the whole step from its host generator (seeded
 cfg.seed, as in a one-process run) and keeps its slice (shard_batch), so a
@@ -18,9 +31,9 @@ sharded run trains on exactly the draws of the one-process run of the same
 seed, and its generator state, which the checkpoints carry, stays the same
 on every rank. The host cost of a draw is therefore not divided by the
 mesh. Departure from the JAX package: its pt shards draw n / n_pt points
-from keys folded with the pt index (maml_driver.py:65-89), equal to the
-unsharded run in distribution only; here pt-sharded runs equal unsharded
-ones up to rounding.
+of every kind from keys folded with the pt index (maml_driver.py:65-89),
+equal to the unsharded run in distribution only; here pt-sharded runs
+equal unsharded ones up to rounding.
 """
 
 from ..meta import leap, maml
@@ -34,33 +47,46 @@ def check_task_split(bsize: int, mesh: Mesh):
         raise ValueError(f"bsize {bsize} is not divisible by n_task_shards={n_dp}")
 
 
-def shard_task_loss_points(points, mesh: Mesh):
-    """The pt point split: part i_pt of each point kind's n axis (axis 2 of
-    [T, sets, n, ...]); every kind's n must be divisible by n_pt."""
+def split_kinds(counts, n_pt: int, pooled=()) -> list:
+    """Per point kind of `counts` points: whether pt splits it into n_pt
+    equal parts (n_pt divides its count, and the count of every kind of
+    its pool in `pooled`) or gives it whole to every pt rank."""
+    split = [n % n_pt == 0 for n in counts]
+    for pool in pooled:
+        if not all(split[k] for k in pool):
+            for k in pool:
+                split[k] = False
+    return split
+
+
+def shard_task_loss_points(points, mesh: Mesh, pooled=()):
+    """The pt point split of a tuple of point kinds, each [T, sets, n, ...]:
+    part i_pt of the n axis of every kind split_kinds splits, every other
+    kind whole."""
     n_pt = mesh.shape[POINT_AXIS]
     if n_pt == 1:
         return points
+    split = split_kinds([x.shape[2] for x in points], n_pt, pooled)
 
-    def part(x):
-        n = x.shape[2]
-        if n % n_pt:
-            raise ValueError(f"a point kind of {n} points is not divisible by "
-                             f"n_point_shards={n_pt}")
-        m = n // n_pt
+    def part(x, s):
+        if not s:
+            return x
+        m = x.shape[2] // n_pt
         return x[:, :, mesh.pt_index * m:(mesh.pt_index + 1) * m]
 
-    return tree_map(part, points)
+    return tuple(part(x, s) for x, s in zip(points, split))
 
 
-def shard_batch(batch, mesh: Mesh):
+def shard_batch(batch, mesh: Mesh, pooled=()):
     """This rank's share of a maml.TaskBatch or leap.TaskBatch: its
-    T / n_dp tasks, and of those its pt part of every point set."""
+    T / n_dp tasks, and of those its pt part of every point set
+    (shard_task_loss_points; `pooled`: the family's PdeDef.pooled_kinds)."""
     bsize = batch.task_params[0].shape[0]
     check_task_split(bsize, mesh)
     t = bsize // mesh.shape[TASK_AXIS]
     lo = mesh.dp_index * t
     tasks = type(batch)(*tree_map(lambda x: x[lo:lo + t], tuple(batch)))
-    return tasks._replace(**{f: shard_task_loss_points(getattr(tasks, f), mesh)
+    return tasks._replace(**{f: shard_task_loss_points(getattr(tasks, f), mesh, pooled)
                              for f in tasks._fields if f.endswith("points")})
 
 

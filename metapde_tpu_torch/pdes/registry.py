@@ -37,6 +37,10 @@ class PdeDef(NamedTuple):
     # (params, resolution, warm_start, ref=False) -> a re-solve that starts
     # from another resolution's ground truth of the same task
     solve_warm: Callable = None
+    # pools of point kinds (indices into the points tuple) that one loss
+    # term averages as one set; the pt split keeps a pool all split or all
+    # whole (parallel/sharding.py::split_kinds)
+    pooled_kinds: tuple = ()
 
 
 def solve_many(pde, params_list, resolution):

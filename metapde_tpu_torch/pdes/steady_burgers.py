@@ -267,4 +267,6 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
         sample_points_batched=sample_points_batched,
         gt_version=2,  # v2: the boundary-snapped conforming mesh (mesh2d)
         solve_ref=solve_ref,
+        # loss_noslip: one mean over the walls and the pore rings
+        pooled_kinds=((2, 3),),
     )

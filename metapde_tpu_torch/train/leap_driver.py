@@ -90,7 +90,9 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
     def draw_step_inputs(gen):
         """draw_all's batch on the device; under a mesh this rank's share."""
         batch = draw_all(gen)
-        return loop.to_device(batch if mesh is None else shard_batch(batch, mesh), device)
+        if mesh is not None:
+            batch = shard_batch(batch, mesh, pde.pooled_kinds)
+        return loop.to_device(batch, device)
 
     if mesh is None:
         def grad_fn(batch, params):
@@ -190,6 +192,7 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
         generator=generator,
         device=device,
         mesh=mesh,
+        point_sets={"points": cfg.task.inner_points},
     )
 
 

@@ -30,10 +30,11 @@ from ..config import Config
 from ..interop import params_from_numpy
 from ..models import make_field
 from ..ops import siren_fused
-from ..parallel.mesh import barrier, gather_values, is_writer, make_mesh
+from ..parallel.mesh import POINT_AXIS, barrier, gather_values, is_writer, make_mesh
+from ..parallel.sharding import split_kinds
 from ..pdes import get_pde
 from ..utils import Timer
-from ..utils.trees import tree_map
+from ..utils.trees import tree_map, tree_stack
 from . import checkpoints as ckpt
 from . import viz
 from .energy import make_branch_kwargs
@@ -88,6 +89,25 @@ def mesh_of(cfg: Config):
     if cfg.mesh.n_task_shards <= 1 and cfg.mesh.n_point_shards <= 1:
         return None
     return make_mesh(cfg.mesh.n_task_shards, cfg.mesh.n_point_shards)
+
+
+def pt_split_note(pde, mesh, point_sets: dict) -> str:
+    """The mesh line's account of the pt split (parallel/sharding.py): for
+    each point set of `point_sets` (batch field -> points a set), the
+    counts of the kinds given whole to every pt rank and of all its kinds,
+    from one set of one task drawn from a generator of its own."""
+    n_pt = mesh.shape[POINT_AXIS]
+    if n_pt == 1:
+        return ""
+    gen = torch.Generator().manual_seed(0)
+    task_params = tree_stack([pde.sample_params(gen)])
+    parts = []
+    for name, n in point_sets.items():
+        counts = [p.shape[2] for p in pde.sample_points_batched(gen, n, task_params, 1)]
+        whole = [c for c, s in zip(counts, split_kinds(counts, n_pt, pde.pooled_kinds))
+                 if not s]
+        parts.append(f"{name} {whole} of {counts}")
+    return "; point kinds given whole to every pt rank: " + ", ".join(parts)
 
 
 def validation_kwargs(task_cfg):
@@ -239,8 +259,9 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
     else:
         path, log, metrics = None, lambda *_: None, None
     device, gen = c["device"], c["generator"]
-    if mesh is not None:
-        log(f"mesh: {mesh.shape} (dp x pt), backend {mesh.backend}, rank 0 on {device}")
+    if mesh is not None and writer:
+        log(f"mesh: {mesh.shape} (dp x pt), backend {mesh.backend}, rank 0 on {device}"
+            + pt_split_note(c["pde"], mesh, c["point_sets"]))
 
     resume_step, eval_seed = 0, None
     if cfg.train.load_model_from_expt:

@@ -27,7 +27,9 @@ points; LEAP at 2 layers of 32, bsize 4, 3 Adam steps, 128 points.
   steps of the same seed (the same host draws): params and inner LRs
   within 1e-4 of each leaf's scale, every rank's params bit for bit equal.
 - refusals: a world size other than the mesh's, bsize not divisible by dp,
-  a point count not divisible by pt, and a mesh with no process group.
+  and a mesh with no process group. A point kind whose count pt does not
+  divide is given whole to every pt shard (parallel/sharding.py), no
+  longer refused.
 - the backend rule (nccl only when every rank on the node has a card of
   its own), and no process group for a one-process run.
 """
@@ -251,8 +253,12 @@ def test_shard_batch_splits_tasks_and_every_point_once():
             assert torch.equal(torch.cat(rows, dim=0), full)
     for k, full in enumerate(batch.task_params):
         assert torch.equal(torch.cat([parts[i, 0].task_params[k] for i in range(2)]), full)
-    with pytest.raises(ValueError, match="not divisible by n_point_shards=3"):
-        shard_batch(batch, Mesh({"dp": 1, "pt": 3}, 0, 0, None, None, "gloo"))
+    # pt = 3 divides no kind of 64 points: each is whole on every pt shard
+    for j in range(3):
+        part = shard_batch(batch, Mesh({"dp": 1, "pt": 3}, 0, j, None, None, "gloo"))
+        for name in ("inner_points", "outer_points"):
+            for got, full in zip(getattr(part, name), getattr(batch, name)):
+                assert full.shape[2] == 64 and torch.equal(got, full)
 
 
 @pytest.mark.parametrize("device_type,cards,local,want", [

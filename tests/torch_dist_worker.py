@@ -1,11 +1,14 @@
 """Gloo ranks on the CPU for the sharded-training tests
-(tests/test_torch_sharding.py, tests/test_torch_distributed.py).
+(tests/test_torch_sharding.py, tests/test_torch_sharding_families.py,
+tests/test_torch_distributed.py).
 
 run_ranks(tmp, world, checks) starts `world` processes of this file, each
 in a session of its own, joined by a file:// process group under `tmp`
 (so concurrent test workers never share a port). Every rank runs the named
 checks in order, as SPMD code does, and saves its results; run_ranks kills
-what is left at its deadline and returns every rank's results. A check
+what is left at its deadline and returns every rank's results
+(start_ranks and wait_ranks split it, so the caller can work while the
+ranks run; each rank's output goes to rank<r>.log under `tmp`). A check
 returns numpy arrays (or strings), which the test compares; a name
 "check:label" runs `check` under its own key. This file
 imports nothing of JAX.
@@ -27,28 +30,47 @@ REPO = Path(__file__).resolve().parents[1]
 
 def run_ranks(tmp, world: int, checks, timeout: float = 120.0):
     """checks: [(name, kwargs)] of CHECKS. Returns [results dict per rank]."""
+    return wait_ranks(start_ranks(tmp, world, checks, timeout))
+
+
+def start_ranks(tmp, world: int, checks, timeout: float = 120.0):
+    """run_ranks without the wait: the started ranks, for wait_ranks, so
+    that the caller can work while they run."""
     tmp = Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     job = tmp / "job.pt"
     torch.save({"checks": checks}, job)
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, f"file://{tmp / 'pg_init'}", str(world), str(r), str(job),
-         str(tmp / f"out{r}.pt")], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, start_new_session=True) for r in range(world)]
-    deadline = time.monotonic() + timeout
-    outs = []
+    procs = []
+    for r in range(world):
+        # output to a file, not a pipe: nobody reads a pipe while the caller works
+        with open(tmp / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, f"file://{tmp / 'pg_init'}", str(world), str(r),
+                 str(job), str(tmp / f"out{r}.pt")], env=env, stdout=log,
+                stderr=subprocess.STDOUT, start_new_session=True))
+    return tmp, procs, time.monotonic() + timeout
+
+
+def wait_ranks(started):
+    """The results dict of every rank of start_ranks, once all exited 0;
+    what is left at the deadline is killed."""
+    tmp, procs, deadline = started
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic())))
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
     finally:
         for p in procs:
             if p.poll() is None:
                 os.killpg(p.pid, signal.SIGKILL)
                 p.wait(timeout=10)
-    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}: {err[-4000:]}"
-    return [torch.load(tmp / f"out{r}.pt", weights_only=False) for r in range(world)]
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, \
+            f"rank {r} exited {p.returncode}: {(tmp / f'rank{r}.log').read_text()[-4000:]}"
+    return [torch.load(tmp / f"out{r}.pt", weights_only=False) for r in range(len(procs))]
 
 
 # --- the checks (run inside every rank) --------------------------------------
@@ -141,7 +163,75 @@ def refusal(argv, mesh, algo="maml"):
     return None
 
 
-CHECKS = {f.__name__: f for f in (maml_grad, leap_grad, pt_exact, train_steps, refusal)}
+def tiled_mesh(n_dp, n_pt):
+    """The (n_dp, n_pt) mesh of parallel/mesh.py::make_mesh when the world
+    has n_dp * n_pt ranks; on a larger world, world / (n_dp * n_pt)
+    independent copies of it side by side (rank r in copy r // size, the
+    groups made by every rank in the same order), which compute the same."""
+    from metapde_tpu_torch.parallel.mesh import POINT_AXIS, TASK_AXIS, Mesh, make_mesh
+    dist = torch.distributed
+    size, world, rank = n_dp * n_pt, dist.get_world_size(), dist.get_rank()
+    if size == world:
+        return make_mesh(n_dp, n_pt)
+    groups = {"dp": None, "pt": None}
+    for base in range(0, world, size):
+        for axis, lists in (
+                ("dp", [[base + i * n_pt + j for i in range(n_dp)] for j in range(n_pt)]),
+                ("pt", [[base + i * n_pt + j for j in range(n_pt)] for i in range(n_dp)])):
+            for ranks in lists:
+                if len(ranks) > 1:
+                    g = dist.new_group(ranks)
+                    if rank in ranks:
+                        groups[axis] = g
+    i_dp, i_pt = divmod(rank % size, n_pt)
+    return Mesh({TASK_AXIS: n_dp, POINT_AXIS: n_pt}, i_dp, i_pt, groups["dp"], groups["pt"],
+                dist.get_backend())
+
+
+def family_grad(argv, mesh, batch, params, lrs=None, algo="maml"):
+    """The sharded meta-gradient and global losses of the full batch on a
+    (dp, pt) mesh (tiled_mesh): shard_batch with the family's pooled
+    kinds, then make_sharded_{maml,leap}_grad_fn."""
+    from metapde_tpu_torch.config import Config, parse_overrides
+    from metapde_tpu_torch.parallel.sharding import (make_sharded_leap_grad_fn,
+                                                     make_sharded_maml_grad_fn, shard_batch)
+    from metapde_tpu_torch.train import leap_driver, maml_driver
+    m = tiled_mesh(*mesh)
+    c = (maml_driver if algo == "maml" else leap_driver).build(
+        parse_overrides(Config(), argv), "cpu")
+    local = shard_batch(batch, m, c["pde"].pooled_kinds)
+    if algo == "maml":
+        return _np(make_sharded_maml_grad_fn(c["maml_def"], c["task_loss"], m)(
+            local, params, lrs))
+    return _np(make_sharded_leap_grad_fn(c["leap_def"], c["task_loss"], m)(local, params))
+
+
+def checkpoints_under_pt(argv, mesh, batch, params, lrs):
+    """The torch.utils.checkpoint calls of family_grad's MAML meta-gradient
+    with remat on, on a (dp, pt) mesh: the engine takes none under pt."""
+    from metapde_tpu_torch.meta import maml
+    calls = []
+    plain = maml.checkpoint
+    maml.checkpoint = lambda *a, **k: calls.append(1) or plain(*a, **k)
+    try:
+        family_grad(argv + ["--train.remat_inner_steps=true"], mesh, batch, params, lrs)
+    finally:
+        maml.checkpoint = plain
+    return len(calls)
+
+
+def run(argv, mesh):
+    """maml_driver.run on a (dp, pt) mesh; the files of the run dir after it
+    (rank 0 writes them, every rank lists them after the last barrier)."""
+    from metapde_tpu_torch.train import maml_driver
+    cfg = _cfg(argv, *mesh)
+    maml_driver.run(cfg, "cpu")
+    torch.distributed.barrier()
+    return sorted(p.name for p in Path(cfg.train.out_dir, cfg.train.expt_name).iterdir())
+
+
+CHECKS = {f.__name__: f for f in (maml_grad, leap_grad, pt_exact, train_steps, refusal,
+                                  family_grad, checkpoints_under_pt, run)}
 
 
 def main(init, world, rank, job, out):
