@@ -426,7 +426,7 @@ from metapde_tpu_torch.pdes.burgers_formulations import default as burgers_defau
 from metapde_tpu_torch.solvers import fem_elasticity, fem_poisson, fv_burgers, multigrid, newton
 from metapde_tpu_torch.train import (checkpoints, leap_driver, loop, maml_driver, nn_driver,
                                      optimizers, viz)
-from metapde_tpu_torch.utils import tb_writer
+from metapde_tpu_torch.utils import spans, tb_writer
 from metapde_tpu_torch.utils.trees import tree_leaves, tree_map
 
 # the watchdog: well inside the 1200 s a caller may give the whole run
@@ -1073,10 +1073,10 @@ def _deploy_checked(tmp, name, deploy, ks, jax_median, n_eval=8, **numbers):
     within K5_FACTOR of the JAX package's CPU median. Returns (launches,
     the median val_rel_err for each k)."""
     t0 = time.perf_counter()
-    siren_fused.siren_apply_fused_batched.launches = 0
+    launches0 = spans.counter("siren_fused.launches")
     rows = deploy()
     torch.cuda.synchronize()
-    launches = siren_fused.siren_apply_fused_batched.launches
+    launches = spans.counter("siren_fused.launches") - launches0
     cached = sorted(p.name for p in (Path(tmp) / "gt_cache_torch").glob("*.npz"))
     # one launch per validation call: a warm-up and the timed repeats per k
     expected = len(ks) * (1 + DEPLOY_REPEATS)
@@ -1498,10 +1498,10 @@ def phase_train():
         out = Path(tmp) / "out"
         args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in TRAIN_CUTS.items()),
                 "--model.use_pallas_inference=true", f"--train.out_dir={out}"]
-        siren_fused.siren_apply_fused_batched.launches = 0
+        launches0 = spans.counter("siren_fused.launches")
         maml_pde.main(args + ["--train.expt_name=smoke"])
         torch.cuda.synchronize()
-        launches = siren_fused.siren_apply_fused_batched.launches
+        launches = spans.counter("siren_fused.launches") - launches0
         run = out / "smoke"
         for f in ("log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
                   f"checkpoint_step_{TRAIN_CUTS['train.outer_steps']}.pickle"):
@@ -1743,10 +1743,10 @@ def phase_leap_train():
         cuts = {**LEAP_TRAIN_CUTS, **LEAP_OVERRIDES}
         args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in cuts.items()),
                 f"--train.out_dir={out}"]
-        siren_fused.siren_apply_fused_batched.launches = 0
+        launches0 = spans.counter("siren_fused.launches")
         leap_pde.main(args + ["--train.expt_name=smoke"])
         torch.cuda.synchronize()
-        launches = siren_fused.siren_apply_fused_batched.launches
+        launches = spans.counter("siren_fused.launches") - launches0
         run = out / "smoke"
         steps = LEAP_TRAIN_CUTS["train.outer_steps"]
         for f in ("log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
@@ -1956,10 +1956,10 @@ def phase_burgers_train():
         cuts = {**BURGERS_TRAIN_CUTS, **BURGERS_OVERRIDES}
         args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in cuts.items()),
                 f"--train.out_dir={out}"]
-        siren_fused.siren_apply_fused_batched.launches = 0
+        launches0 = spans.counter("siren_fused.launches")
         maml_pde.main(args + ["--train.expt_name=smoke"])
         torch.cuda.synchronize()
-        launches = siren_fused.siren_apply_fused_batched.launches
+        launches = spans.counter("siren_fused.launches") - launches0
         run = out / "smoke"
         last = BURGERS_TRAIN_CUTS["train.outer_steps"]
         for f in ("log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
@@ -2124,11 +2124,11 @@ def phase_elasticity_train():
         cuts = {**EM_TRAIN_CUTS, **EM_OVERRIDES}
         args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in cuts.items()),
                 f"--train.out_dir={out}", "--train.expt_name=smoke"]
-        siren_fused.siren_apply_fused_batched.launches = 0
+        launches0 = spans.counter("siren_fused.launches")
         fem_elasticity.solve_direct.newton_steps = 0
         maml_pde.main(args)
         torch.cuda.synchronize()
-        launches = siren_fused.siren_apply_fused_batched.launches
+        launches = spans.counter("siren_fused.launches") - launches0
         run = out / "smoke"
         last = EM_TRAIN_CUTS["train.outer_steps"]
         for f in ("log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
@@ -2294,11 +2294,11 @@ def phase_steady_train():
         cuts = {**SB_TRAIN_CUTS, **SB_OVERRIDES}
         args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in cuts.items()),
                 f"--train.out_dir={out}", "--train.expt_name=smoke"]
-        siren_fused.siren_apply_fused_batched.launches = 0
+        launches0 = spans.counter("siren_fused.launches")
         newton.newton_krylov.steps, newton.bicgstab.iterations = 0, 0
         maml_pde.main(args)
         torch.cuda.synchronize()
-        launches = siren_fused.siren_apply_fused_batched.launches
+        launches = spans.counter("siren_fused.launches") - launches0
         solve_counts = (newton.newton_krylov.steps, newton.bicgstab.iterations)
         run = out / "smoke"
         last = SB_TRAIN_CUTS["train.outer_steps"]
@@ -2376,10 +2376,10 @@ def phase_poisson3d_train():
         out = Path(tmp) / "out"
         args = [*P3D_FLAGS, *(f"--{k}={v}" for k, v in P3D_TRAIN_CUTS.items()),
                 f"--train.out_dir={out}", "--train.expt_name=smoke"]
-        siren_fused.siren_apply_fused_batched.launches = 0
+        launches0 = spans.counter("siren_fused.launches")
         maml_pde.main(args)
         torch.cuda.synchronize()
-        launches = siren_fused.siren_apply_fused_batched.launches
+        launches = spans.counter("siren_fused.launches") - launches0
         run = out / "smoke"
         last = P3D_TRAIN_CUTS["train.outer_steps"]
         for f in ("log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
@@ -2641,13 +2641,13 @@ def phase_nn_multistart():
     and a final checkpoint of one unstacked model with 3 scores."""
     t0 = time.perf_counter()
     out = _nn_out()
-    siren_fused.siren_apply_fused_batched.launches = 0
+    launches0 = spans.counter("siren_fused.launches")
     nn_pde.main(NN_LEAP_FLAGS + [
         "--seed=1", "--model.use_pallas_inference=true",
         f"--train.load_model_from_expt={LEAP_RUN}", f"--train.out_dir={out}",
         "--train.expt_name=multistart", *(f"--{k}={v}" for k, v in NN_MS_CUTS.items())])
     torch.cuda.synchronize()
-    launches = siren_fused.siren_apply_fused_batched.launches
+    launches = spans.counter("siren_fused.launches") - launches0
     run = out / "multistart"
     recs = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
     ms_keys = ("ms_best_idx", "ms_train_best_idx", "ms_score_best", "ms_score_worst")
@@ -2835,10 +2835,10 @@ def _leap_family_train(name, run, ckpt, jax_same, jax_last, num_tsteps=None):
         out = Path(tmp) / "out"
         args = [f"--from_run={src}", *(f"--{k}={v}" for k, v in cuts.items()),
                 f"--train.out_dir={out}"]
-        siren_fused.siren_apply_fused_batched.launches = 0
+        launches0 = spans.counter("siren_fused.launches")
         leap_pde.main(args + ["--train.expt_name=smoke", f"--train.load_model_from_expt={src}"])
         torch.cuda.synchronize()
-        launches = siren_fused.siren_apply_fused_batched.launches
+        launches = spans.counter("siren_fused.launches") - launches0
         run_dir = out / "smoke"
         for f in ("log.txt", "metrics.jsonl", "config.json", "checkpoint_best.pickle",
                   f"checkpoint_step_{end}.pickle"):

@@ -40,8 +40,8 @@ gloo when they share one, gloo on the CPU). On a card, rank 0 also
 profiles one step of each mesh while the other ranks take it unprofiled
 (a reference profiles none): device launches, device-busy ms, idle
 share, and the device ms of NCCL's kernels; every rank counts its
-collectives (calls,
-bytes, host ms of the blocking calls). Each row's stage_s gives the
+collectives (calls, bytes, host ms of the blocking calls: the counters and
+spans of utils/spans.py). Each row's stage_s gives the
 seconds of its stages: build, the compared step, the timed steps and the
 profiled one; rank 0's also the start-up from the orchestrator's launch
 (interpreter and imports), the references it took before its process group,
@@ -130,6 +130,7 @@ def _measure(args, flags, device, mesh, backend, tag=""):
     from ..models.siren import mixed_precision_scope
     from ..parallel import mesh as mesh_mod
     from ..train import leap_driver, maml_driver
+    from ..utils import spans
     from ..utils.trees import global_norm, tree_map
 
     n_dp, n_pt = (int(x) for x in mesh.split("x"))
@@ -176,18 +177,20 @@ def _measure(args, flags, device, mesh, backend, tag=""):
     steps, draws, coll = [], [], []
     for _ in range(args.timed_steps):
         sync()
-        mesh_mod.collectives.reset()
-        t0 = time.perf_counter()
-        batch = c["draw_step_inputs"](gen)
-        t1 = time.perf_counter()
-        out = c["step_core"](batch, *state)
-        state = out[:n_state]
-        float(meta_of(out).mean())  # the loop's host read
-        sync()
-        steps.append(time.perf_counter() - t0)
+        with spans.recording() as rec:
+            t0 = time.perf_counter()
+            batch = c["draw_step_inputs"](gen)
+            t1 = time.perf_counter()
+            out = c["step_core"](batch, *state)
+            state = out[:n_state]
+            float(meta_of(out).mean())  # the loop's host read
+            sync()
+            steps.append(time.perf_counter() - t0)
         draws.append(t1 - t0)
-        cc = mesh_mod.collectives
-        coll.append({"calls": cc.calls, "bytes": cc.bytes, "host_ms": cc.host_s * 1e3})
+        coll.append({"calls": rec.counters.get("collective.calls", 0),
+                     "bytes": rec.counters.get("collective.bytes", 0),
+                     "host_ms": 1e-6 * sum(s.end_ns - s.start_ns for s in rec.spans
+                                           if s.name == "collective")})
     stage("timed")
     row = {"role": "reference" if c["mesh"] is None else f"rank{args.process_id}",
            "algo": args.algo, "mesh": mesh, "backend": backend, "device": str(dev),

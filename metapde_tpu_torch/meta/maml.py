@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.mesh import tree_mean
+from ..utils import spans
 from ..utils.trees import (clip_by_global_norm, clip_by_global_norm_per_task, tree_leaves,
                            tree_map, tree_structure_equal, tree_unflatten)
 
@@ -183,8 +184,11 @@ def _batched_rollout(maml_def: MamlDef, task_loss: Callable, batch: TaskBatch,
     for t in range(maml_def.inner_steps):
         lr = inner_lrs[t] if torch.is_tensor(inner_lrs) else tree_map(
             lambda x: x[t], inner_lrs)
-        theta, loss, outer = step(theta, lr, _set(batch.inner_points, t),
-                                  _set(batch.outer_points, t))
+        # the span outside the checkpoint: remat's recompute reruns `step`
+        # inside the meta-backward
+        with spans.span("maml.inner_step"):
+            theta, loss, outer = step(theta, lr, _set(batch.inner_points, t),
+                                      _set(batch.outer_points, t))
         losses.append(loss)
         meta_loss = outer if meta_loss is None else outer + meta_loss * decay
     with torch.no_grad():
@@ -224,7 +228,8 @@ def multi_task_grad_and_losses(maml_def: MamlDef, task_loss: Callable, batch: Ta
     meta_grad = None
     if need_grad:
         wrt = tree_leaves(params) + ([] if inner_lrs is None else tree_leaves(lrs))
-        flat = torch.autograd.grad(meta_loss.mean(), wrt)
+        with spans.span("maml.meta_backward"):
+            flat = torch.autograd.grad(meta_loss.mean(), wrt)
         n = len(tree_leaves(params))
         meta_grad = tree_unflatten(params, flat[:n])
         if inner_lrs is not None:

@@ -19,8 +19,9 @@ SFU after an exact range reduction, so it agrees with the plain version to
 carry a leading task axis of T, or one set of params for every task when
 ``shared`` (the k = 0 deployment). ``siren_apply_fused`` is its T = 1 case.
 Both launch the kernel for a CUDA tensor (or raise) and take the plain
-version only for a tensor on the CPU. ``siren_apply_fused_batched.launches``
-counts kernel launches, so a run can show it went through the kernel.
+version only for a tensor on the CPU. The counter ``siren_fused.launches``
+(utils/spans.py) counts kernel launches, so a run can show it went through
+the kernel.
 """
 
 import contextlib
@@ -30,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import spans
 from . import _build
 
 MAX_WIDTH = 128  # largest in_dim, layer width and out_dim the kernel takes
@@ -194,7 +196,7 @@ def launch(packed: Packed, x, omega):
             float(omega), stream)
     if rc != 0:
         raise RuntimeError(f"siren_fused_forward failed to launch: cudaError {rc}")
-    siren_apply_fused_batched.launches += 1
+    spans.count("siren_fused.launches")
     return out
 
 
@@ -219,9 +221,6 @@ def siren_apply_fused_batched(params, x, cfg, shared=False):
     # the packed copy stays alive until the stream-ordered kernel has read it
     # (the caching allocator reuses memory in stream order)
     return _finish(launch(pack(params, cfg, x.shape[0], shared, dims), x, cfg.omega), cfg)
-
-
-siren_apply_fused_batched.launches = 0
 
 
 def siren_apply_fused(params, x, cfg):

@@ -31,12 +31,12 @@ import contextlib
 import datetime
 import functools
 import os
-import time
 from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
+from ..utils import spans
 from ..utils.trees import tree_leaves, tree_unflatten
 
 TASK_AXIS = "dp"
@@ -183,32 +183,18 @@ def gather_values(value, mesh: Optional[Mesh]) -> list:
 
 # --- collectives ------------------------------------------------------------
 
-class CollectiveCount:
-    """Collectives issued in this process: calls, bytes, and the host
-    seconds spent in the calls (the whole collective under gloo, which
-    blocks; the enqueue under nccl). cli/distributed_smoke reads them;
-    reset() before a measured step."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.calls, self.bytes, self.host_s = 0, 0, 0.0
-
-    @contextlib.contextmanager
-    def timed(self, t: torch.Tensor):
-        self.calls += 1
-        self.bytes += t.numel() * t.element_size()
-        t0 = time.perf_counter()
-        yield
-        self.host_s += time.perf_counter() - t0
-
-
-collectives = CollectiveCount()
+def _issue(t: torch.Tensor):
+    """Count one collective of `t` (counters collective.calls and
+    collective.bytes) and return the span `collective` to issue it in: its
+    host time is the whole collective under gloo, which blocks, and the
+    enqueue under nccl."""
+    spans.count("collective.calls")
+    spans.count("collective.bytes", t.numel() * t.element_size())
+    return spans.span("collective")
 
 
 def _all_reduce(t, group):
-    with collectives.timed(t):
+    with _issue(t):
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
@@ -268,7 +254,7 @@ def all_gather_rows(tree, group):
     t_local = leaves[0].shape[0]
     rows = torch.cat([t.reshape(t_local, -1) for t in leaves], dim=1)
     out = [torch.empty_like(rows) for _ in range(n)]
-    with collectives.timed(rows):
+    with _issue(rows):
         dist.all_gather(out, rows.contiguous(), group=group)
     gathered = torch.cat(out, dim=0)
     parts = gathered.split([t[0].numel() for t in leaves], dim=1)

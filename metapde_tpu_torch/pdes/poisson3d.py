@@ -37,6 +37,7 @@ import torch
 
 from ..config import TaskConfig
 from ..ops.operators import vmap_weighted_laplacian
+from ..utils import spans
 from . import frozen
 from .registry import PdeDef
 
@@ -121,21 +122,25 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
     def in_domain(gen, n, geo):
         rows = geo.shape[0]
         n_cand = 24 * n
-        dirs = unit_dirs(gen, rows, n_cand)
-        rad = _BOX * torch.rand((rows, n_cand, 1), generator=gen, device=gen.device) ** (1.0 / 3.0)
-        x = rad * dirs
-        inside = (~is_outside(x, geo[:, None, :])).to(x.dtype)
-        # where the inside candidates run out (or, drawing with replacement,
-        # a row has none) JAX's choice falls on zero-probability ones; a
-        # weight of 1e-30 does that, and is never drawn otherwise
-        idx = torch.multinomial(inside + 1e-30, n, replacement=replace, generator=gen)
-        pts = torch.gather(x, 1, idx[..., None].expand(-1, -1, 3))
-        # the tail guard: a pick outside moves to half its star radius
-        length = torch.clamp(torch.linalg.vector_norm(pts, dim=-1, keepdim=True), min=1e-12)
-        d = pts / length
-        r_star = radius(d, geo[:, None, 0], geo[:, None, 1])[..., None]
-        bad = is_outside(pts, geo[:, None, :])[..., None]
-        return torch.where(bad, 0.5 * r_star * d, pts)
+        with spans.span("draw.candidates"):
+            dirs = unit_dirs(gen, rows, n_cand)
+            rad = _BOX * torch.rand((rows, n_cand, 1), generator=gen,
+                                    device=gen.device) ** (1.0 / 3.0)
+            x = rad * dirs
+            inside = (~is_outside(x, geo[:, None, :])).to(x.dtype)
+        with spans.span("draw.choice"):
+            # where the inside candidates run out (or, drawing with
+            # replacement, a row has none) JAX's choice falls on
+            # zero-probability ones; a weight of 1e-30 does that, and is
+            # never drawn otherwise
+            idx = torch.multinomial(inside + 1e-30, n, replacement=replace, generator=gen)
+            pts = torch.gather(x, 1, idx[..., None].expand(-1, -1, 3))
+            # the tail guard: a pick outside moves to half its star radius
+            length = torch.clamp(torch.linalg.vector_norm(pts, dim=-1, keepdim=True), min=1e-12)
+            d = pts / length
+            r_star = radius(d, geo[:, None, 0], geo[:, None, 1])[..., None]
+            bad = is_outside(pts, geo[:, None, :])[..., None]
+            return torch.where(bad, 0.5 * r_star * d, pts)
 
     def _geo(params, gen, sets=1):
         geo = params[2].to(gen.device)

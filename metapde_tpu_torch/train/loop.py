@@ -29,12 +29,11 @@ import torch
 from ..config import Config
 from ..interop import params_from_numpy
 from ..models import make_field
-from ..ops import siren_fused
 from ..parallel.mesh import POINT_AXIS, barrier, gather_values, is_writer, make_mesh
 from ..parallel.sharding import split_kinds
 from ..pdes import get_pde
-from ..utils import Timer
-from ..utils.trees import tree_map, tree_stack
+from ..utils import Timer, spans
+from ..utils.trees import tree_leaves, tree_map, tree_stack
 from . import checkpoints as ckpt
 from . import viz
 from .energy import make_branch_kwargs
@@ -52,10 +51,13 @@ def device_barrier(device):
 
 def to_device(tree, device):
     """Host tensors -> `device`; through pinned memory and without a host
-    wait on CUDA, so drawing the next step overlaps the device's work."""
-    if device.type == "cpu":
-        return tree
-    return tree_map(lambda t: t.pin_memory().to(device, non_blocking=True), tree)
+    wait on CUDA, so drawing the next step overlaps the device's work (on
+    the CPU the same tensors). Counts their bytes as `h2d_bytes`."""
+    with spans.span("draw.to_device"):
+        spans.count("h2d_bytes", sum(t.numel() * t.element_size() for t in tree_leaves(tree)))
+        if device.type == "cpu":
+            return tree
+        return tree_map(lambda t: t.pin_memory().to(device, non_blocking=True), tree)
 
 
 def problem(cfg: Config):
@@ -364,7 +366,7 @@ def train(cfg: Config, c: dict, learner: Learner, s: dict) -> dict:
     peaks = gather_values(torch.cuda.max_memory_allocated(device) if device.type == "cuda"
                           else None, mesh)
     log(f"done: {step} steps, siren_fused launches in this process "
-        f"{siren_fused.siren_apply_fused_batched.launches}, "
+        f"{spans.counter('siren_fused.launches')}, "
         f"peak device memory by rank {json.dumps(peaks)}")
     return s
 
@@ -376,12 +378,12 @@ class Trace:
     iteration 1 + profile_steps, or when training ends first. It is written
     into `profile_dir` as a Chrome trace (trace.json: host ops, and on a
     card the CUDA kernels and copies with their launches, each loop
-    iteration a span named loop_iteration_<i>), not XLA's format.
-    profile_dir None: no trace."""
+    iteration a span named loop_iteration_<i> holding the program's spans
+    of utils/spans.py), not XLA's format. profile_dir None: no trace."""
 
     def __init__(self, profile_dir, profile_steps, device, log):
         self.dir, self.steps, self.device, self.log = profile_dir, profile_steps, device, log
-        self.it, self.prof, self.span = 0, None, None
+        self.it, self.prof, self.recording, self.span = 0, None, None, None
 
     def iteration(self):
         """Call at the top of each loop iteration."""
@@ -391,12 +393,14 @@ class Trace:
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=activities)
             self.prof.start()
+            self.recording = spans.recording(mirror=True)
+            self.recording.__enter__()
         if self.prof is not None and self.it == 1 + self.steps:
             self.stop()
             self.log(f"wrote profiler trace to {self.dir}")
         if self.prof is not None:
             self._end_span()
-            self.span = torch.profiler.record_function(f"loop_iteration_{self.it}")
+            self.span = spans.span(f"loop_iteration_{self.it}")
             self.span.__enter__()
         self.it += 1
 
@@ -410,6 +414,7 @@ class Trace:
             return
         device_barrier(self.device)
         self._end_span()
+        self.recording.__exit__(None, None, None)
         self.prof.stop()
         os.makedirs(self.dir, exist_ok=True)
         self.prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))

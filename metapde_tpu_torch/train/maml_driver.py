@@ -56,6 +56,7 @@ from ..meta import maml
 from ..models.siren import mixed_precision_scope
 from ..parallel.mesh import rank_device
 from ..parallel.sharding import check_task_split, make_sharded_maml_grad_fn, shard_batch
+from ..utils import spans
 from ..utils.trees import global_norm, tree_map, tree_stack
 from . import loop, multistart
 from .deploy import coef_funcs, make_opt_final_model
@@ -96,21 +97,24 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
         """One outer step's draws for T = bsize tasks, from `gen` (on the
         host by default): a maml.TaskBatch."""
         n_sets = cfg.maml.inner_steps + 1
-        tps = [pde.sample_params(gen) for _ in range(cfg.maml.bsize)]
-        task_params = tree_stack(tps)
-        return maml.TaskBatch(
-            task_params=task_params,
-            inner_points=pde.sample_points_batched(gen, cfg.task.inner_points,
-                                                   task_params, n_sets),
-            outer_points=pde.sample_points_batched(gen, cfg.task.outer_points,
-                                                   task_params, n_sets))
+        with spans.span("draw.sample"):
+            tps = [pde.sample_params(gen) for _ in range(cfg.maml.bsize)]
+            task_params = tree_stack(tps)
+            return maml.TaskBatch(
+                task_params=task_params,
+                inner_points=pde.sample_points_batched(gen, cfg.task.inner_points,
+                                                       task_params, n_sets),
+                outer_points=pde.sample_points_batched(gen, cfg.task.outer_points,
+                                                       task_params, n_sets))
 
     def draw_step_inputs(gen):
-        """draw_all's batch on the device; under a mesh this rank's share."""
-        batch = draw_all(gen)
-        if mesh is not None:
-            batch = shard_batch(batch, mesh, pde.pooled_kinds)
-        return loop.to_device(batch, device)
+        """draw_all's batch on the device; under a mesh this rank's share.
+        The span `draw` begins an outer step."""
+        with spans.span("draw", new_step=True):
+            batch = draw_all(gen)
+            if mesh is not None:
+                batch = shard_batch(batch, mesh, pde.pooled_kinds)
+            return loop.to_device(batch, device)
 
     if mesh is None:
         def grad_fn(batch, params, lrs):
@@ -121,20 +125,21 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
     def step_core(batch, params, lrs, opt_state, lr_opt_state):
         """One outer step on given draws (the JAX package's _step_core);
         under a mesh, this rank's share of them (shard_batch)."""
-        with mixed_precision_scope(model_cfg):
-            (model_grad, lr_grad), losses, meta_losses = grad_fn(batch, params, lrs)
-        with torch.no_grad():
-            # norm on the model part, the scale applied to both
-            meta_grad_norm = global_norm(model_grad)
-            clip = cfg.maml.grad_clip
-            scale = torch.where(meta_grad_norm > clip,
-                                clip / torch.clamp(meta_grad_norm, min=1e-30),
-                                torch.ones_like(meta_grad_norm))
-            model_grad, lr_grad = tree_map(lambda g: g * scale, (model_grad, lr_grad))
-            updates, opt_state = outer_opt.update(model_grad, opt_state, params)
-            params = apply_updates(params, updates)
-            lr_updates, lr_opt_state = lr_opt.update(lr_grad, lr_opt_state, lrs)
-            lrs = apply_updates(lrs, lr_updates)
+        with spans.span("step"):
+            with mixed_precision_scope(model_cfg):
+                (model_grad, lr_grad), losses, meta_losses = grad_fn(batch, params, lrs)
+            with torch.no_grad(), spans.span("outer_update"):
+                # norm on the model part, the scale applied to both
+                meta_grad_norm = global_norm(model_grad)
+                clip = cfg.maml.grad_clip
+                scale = torch.where(meta_grad_norm > clip,
+                                    clip / torch.clamp(meta_grad_norm, min=1e-30),
+                                    torch.ones_like(meta_grad_norm))
+                model_grad, lr_grad = tree_map(lambda g: g * scale, (model_grad, lr_grad))
+                updates, opt_state = outer_opt.update(model_grad, opt_state, params)
+                params = apply_updates(params, updates)
+                lr_updates, lr_opt_state = lr_opt.update(lr_grad, lr_opt_state, lrs)
+                lrs = apply_updates(lrs, lr_updates)
         return params, lrs, opt_state, lr_opt_state, losses, meta_losses, meta_grad_norm
 
     def train_step(gen, params, lrs, opt_state, lr_opt_state):

@@ -63,8 +63,7 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..interop import params_from_numpy
 from ..meta import maml
 from ..models.siren import mixed_precision_scope
-from ..ops import siren_fused
-from ..utils import Timer
+from ..utils import Timer, spans
 from ..utils.trees import (clip_by_global_norm, global_norm, tree_leaves, tree_map, tree_stack,
                            tree_unflatten)
 from . import checkpoints as ckpt
@@ -279,7 +278,7 @@ def run(cfg: Config, maml_warmup: bool = False, device=DEFAULT_DEVICE):
     launches it made. Returns the final params (the selected candidate
     under multi-start)."""
     t_run = time.perf_counter()
-    launches0 = siren_fused.siren_apply_fused_batched.launches
+    launches0 = spans.counter("siren_fused.launches")
     c = build(cfg, device)
     out_dir = cfg.train.out_dir or f"{cfg.task.pde}_nn_results"
     path, log, metrics = prepare_logging(out_dir, cfg.train.expt_name)
@@ -416,7 +415,7 @@ def run(cfg: Config, maml_warmup: bool = False, device=DEFAULT_DEVICE):
         ckpt.save_checkpoint(path, step, state)
     log(f"done: {step} steps, run {time.perf_counter() - t_run} s, ground truth "
         f"{gt_timer.interval} s, siren_fused launches "
-        f"{siren_fused.siren_apply_fused_batched.launches - launches0}")
+        f"{spans.counter('siren_fused.launches') - launches0}")
     if metrics is not None:
         metrics.close()
     return final_params

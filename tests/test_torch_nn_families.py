@@ -223,7 +223,6 @@ def test_run_writes_the_jax_sweep_s_keys_one_inference_call_a_validation(
         calls.append(tuple(x.shape))
         return wrapper(params, x, cfg, shared=shared)
 
-    counted.launches = 0  # the CPU takes the plain version: no launch
     monkeypatch.setattr(siren_fused, "siren_apply_fused_batched", counted)
     argv = FAMILY[family] + SMALL + TINY[family] + [
         "--train.outer_steps=4", "--train.log_every=2", "--train.val_every=2",

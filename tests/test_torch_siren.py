@@ -22,6 +22,7 @@ from metapde_tpu_torch.interop import params_from_numpy
 from metapde_tpu_torch.models import make_field, siren
 from metapde_tpu_torch.models.siren import field_apply_vhd
 from metapde_tpu_torch.ops import siren_fused
+from metapde_tpu_torch.utils import spans
 from metapde_tpu_torch.utils.trees import tree_map
 
 torch.set_num_threads(1)
@@ -109,10 +110,10 @@ def test_fused_reference_matches_pallas_kernel(kw):
 def test_dispatcher_falls_back_for_fourier():
     _, t_field, _, t_params = _pair(dict(n_fourier=3, use_pallas_inference=True))
     x = torch.tensor(_points(64))
-    before = siren_fused.siren_apply_fused_batched.launches
+    before = spans.counter("siren_fused.launches")
     u = t_field.apply_inference(t_params, x)
     np.testing.assert_allclose(u.numpy(), t_field.apply(t_params, x).numpy(), atol=1e-6)
-    assert siren_fused.siren_apply_fused_batched.launches == before
+    assert spans.counter("siren_fused.launches") == before
 
 
 def test_dispatcher_opt_in():
@@ -133,7 +134,7 @@ def test_dispatcher_opt_in():
         siren_fused.siren_apply_fused_batched = orig
     _close(u_on, t_on.apply(p, x))
     _close(u_off, t_off.apply(p, x))
-    assert siren_fused.siren_apply_fused_batched.launches == 0
+    assert spans.counter("siren_fused.launches") == 0
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -246,7 +247,7 @@ def test_batched_dispatcher(kw, kernel, shared, monkeypatch):
     assert calls == ([{"shared": shared}] if kernel else [])
     for i in range(3):
         _close(u[i], field.apply(p if shared else tree_map(lambda t: t[i], p), x[i]))
-    assert orig.launches == 0
+    assert spans.counter("siren_fused.launches") == 0
 
 
 def test_batched_wrapper_rejects_wrong_batch_shapes_and_dtypes():
@@ -265,7 +266,7 @@ def test_batched_wrapper_rejects_wrong_batch_shapes_and_dtypes():
         f(tree_map(lambda t: t.double(), p), x, cfg)
     with pytest.raises(ValueError):  # neither cpu nor cuda: no silent fallback
         f(tree_map(lambda t: t.to("meta"), p), x.to("meta"), cfg)
-    assert f.launches == 0
+    assert spans.counter("siren_fused.launches") == 0
 
 
 def test_init_distribution_bounds():

@@ -113,6 +113,28 @@ def test_trace_covers_iterations_1_to_profile_steps(tmp_path):
     assert (tmp_path / "short" / "trace.json").exists() and len(logged) == 1
 
 
+def test_trace_shows_the_program_s_spans_in_each_iteration(tmp_path):
+    """profile_dir turns the recorder on for the traced iterations, and its
+    spans enter the trace nested in their loop iteration."""
+    cfg = parse_overrides(Config(), [
+        "--task.pde=poisson3d", "--task.inner_points=64", "--task.outer_points=64",
+        "--task.validation_points=64", "--task.n_eval=2", "--model.num_layers=2",
+        "--model.layer_size=16", "--maml.bsize=2", "--maml.inner_steps=2",
+        "--train.outer_steps=3", "--train.log_every=10", "--train.viz_every=0",
+        f"--train.out_dir={tmp_path}", "--train.expt_name=r",
+        f"--train.profile_dir={tmp_path / 'prof'}", "--train.profile_steps=1"])
+    maml_driver.run(cfg, "cpu")
+    events = [e for e in json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    it = [e for e in events if e["name"].startswith("loop_iteration_")]
+    assert [e["name"] for e in it] == ["loop_iteration_1"]
+    lo, hi = it[0]["ts"], it[0]["ts"] + it[0]["dur"]
+    for name in ("draw.sample", "maml.meta_backward", "outer_update"):
+        found = [e for e in events if e["name"] == name]
+        assert len(found) == 1, name
+        assert lo <= found[0]["ts"] and found[0]["ts"] + found[0]["dur"] <= hi, name
+
+
 def _jax_model_and_port(overrides):
     jc = j_driver.build(j_parse_overrides(JConfig(), overrides))
     tc = maml_driver.build(parse_overrides(Config(), overrides), "cpu")
