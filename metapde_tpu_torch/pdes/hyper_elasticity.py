@@ -43,7 +43,7 @@ from torch.func import jacfwd, vmap
 from ..config import TaskConfig
 from ..solvers import fem_elasticity
 from . import frozen
-from .registry import PdeDef
+from .registry import PdeDef, multinomial
 
 TOP_DISPLACEMENT = -0.12
 
@@ -169,7 +169,7 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
 
     def choose(gen, n, xy, weights):
         """n of the candidates xy [rows, C, 2] per row, drawn by weight."""
-        idx = torch.multinomial(weights, n, replacement=replace, generator=gen)
+        idx = multinomial(weights, n, replace, gen)
         return torch.gather(xy, 1, idx[..., None].expand(-1, -1, 2))
 
     def masked(gen, n, xy, php):

@@ -37,7 +37,7 @@ from ..config import TaskConfig
 from ..ops.operators import vmap_weighted_laplacian
 from ..solvers import fem_poisson
 from . import frozen
-from .registry import PdeDef
+from .registry import PdeDef, constant, multinomial
 
 
 def radius(theta, c1, c2):
@@ -111,8 +111,7 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
         ys = _uniform(gen, n_cand, dom.ymin, dom.ymax)
         xy = torch.stack([xs, ys], dim=1)
         inside = (~is_in_hole(xy, params[2].to(gen.device))).to(xy.dtype)
-        idxs = torch.multinomial(inside, n, replacement=not cfg.sample_with_replacement,
-                                 generator=gen)
+        idxs = multinomial(inside, n, not cfg.sample_with_replacement, gen)
         return xy[idxs].to(params[2].device)
 
     def sample_points(gen, n, params):
@@ -134,14 +133,13 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
         r0 = radius(theta, c1, c2)
         bnd = torch.stack([r0 * torch.cos(theta), r0 * torch.sin(theta)], dim=-1)
         u = _uniform(gen, rows * 3 * n * 2, 0.0, 1.0).reshape(rows, 3 * n, 2)
-        lo = torch.tensor([dom.xmin, dom.ymin], device=gen.device)
-        hi = torch.tensor([dom.xmax, dom.ymax], device=gen.device)
+        lo = constant([dom.xmin, dom.ymin], gen.device)
+        hi = constant([dom.xmax, dom.ymax], gen.device)
         xy = lo + (hi - lo) * u
         # is_in_hole per row, with the reference's atan2(x, y)
         length = torch.linalg.norm(xy, dim=-1)
         inside = ~(radius(torch.atan2(xy[..., 0], xy[..., 1]), c1, c2) < length + 1e-7)
-        idxs = torch.multinomial(inside.to(xy.dtype), n,
-                                 replacement=not cfg.sample_with_replacement, generator=gen)
+        idxs = multinomial(inside.to(xy.dtype), n, not cfg.sample_with_replacement, gen)
         dmn = torch.gather(xy, 1, idxs[..., None].expand(rows, n, 2))
         out_dev = params_stacked[2].device
         return (bnd.reshape(t, sets, n, 2).to(out_dev),

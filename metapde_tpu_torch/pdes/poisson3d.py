@@ -39,7 +39,7 @@ from ..config import TaskConfig
 from ..ops.operators import vmap_weighted_laplacian
 from ..utils import spans
 from . import frozen
-from .registry import PdeDef
+from .registry import PdeDef, multinomial
 
 # box bound for candidate sampling: r <= 1 + |c1| + |c2| <= 1.4
 _BOX = 1.45
@@ -133,7 +133,7 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
             # replacement, a row has none) JAX's choice falls on
             # zero-probability ones; a weight of 1e-30 does that, and is
             # never drawn otherwise
-            idx = torch.multinomial(inside + 1e-30, n, replacement=replace, generator=gen)
+            idx = multinomial(inside + 1e-30, n, replace, gen)
             pts = torch.gather(x, 1, idx[..., None].expand(-1, -1, 3))
             # the tail guard: a pick outside moves to half its star radius
             length = torch.clamp(torch.linalg.vector_norm(pts, dim=-1, keepdim=True), min=1e-12)

@@ -2,10 +2,15 @@
 
 A PdeDef bundles the pure functions of one task family. Samplers take a
 torch.Generator (draws happen on the generator's device); loss functions
-take explicit points, so tests can pass in the points JAX drew.
+take explicit points, so tests can pass in the points JAX drew. On a card
+the batched point samplers read nothing back to the host: their constants
+are filled on the device (constant) and their choices drawn without
+torch.multinomial's host checks (multinomial).
 """
 
 from typing import Callable, NamedTuple
+
+import torch
 
 from ..config import TaskConfig
 
@@ -41,6 +46,33 @@ class PdeDef(NamedTuple):
     # term averages as one set; the pt split keeps a pool all split or all
     # whole (parallel/sharding.py::split_kinds)
     pooled_kinds: tuple = ()
+
+
+def constant(values, device, dtype=torch.float32):
+    """torch.as_tensor(values, dtype=dtype, device=device) of a float or a
+    list of floats, filled on the device: the same bits, with no copy from
+    the host (a pageable copy to a card waits for its queue). A tensor is
+    moved as it is."""
+    if torch.is_tensor(values):
+        return values.to(device, dtype)
+    if isinstance(values, (list, tuple)):
+        return torch.stack([constant(v, device, dtype) for v in values])
+    return torch.full((), values, dtype=dtype, device=device)
+
+
+def multinomial(weights, n: int, replacement: bool, gen):
+    """torch.multinomial(weights, n, replacement, generator=gen), bit for
+    bit. Without replacement or for one sample torch draws by exponential
+    keys on every device, after checks that a card reads back to the host;
+    this runs the same algorithm without them: keys q ~ Exp(1), the top n
+    of weights / q. The families' weights are finite and non-negative by
+    construction."""
+    if replacement and n > 1:
+        return torch.multinomial(weights, n, replacement=True, generator=gen)
+    keys = weights / torch.empty_like(weights).exponential_(1.0, generator=gen)
+    if n == 1:
+        return torch.argmax(keys, dim=-1, keepdim=True)
+    return torch.topk(keys, n).indices
 
 
 def solve_many(pde, params_list, resolution):

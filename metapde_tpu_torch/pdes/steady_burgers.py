@@ -40,7 +40,7 @@ from torch.func import jacfwd, jvp, vmap
 from ..config import TaskConfig
 from ..solvers import fem_steady_burgers
 from . import frozen
-from .registry import PdeDef
+from .registry import PdeDef, constant, multinomial
 
 
 def overlap_pass(pore_shapes, pore_sizes, pore_x0y0, n_holes, max_hole_size):
@@ -69,8 +69,7 @@ def _unit(gen, shape):
 
 def _scaled(u, lo, hi):
     """jax.random.uniform's scaling of unit draws u: max(lo, u (hi - lo) + lo)."""
-    lo = torch.as_tensor(lo, dtype=u.dtype).to(u.device)
-    hi = torch.as_tensor(hi, dtype=u.dtype).to(u.device)
+    lo, hi = constant(lo, u.device, u.dtype), constant(hi, u.device, u.dtype)
     return torch.maximum(lo, u * (hi - lo) + lo)
 
 
@@ -148,7 +147,7 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
         rows, h = php.shape[:2]
         valid = torch.arange(h, device=php.device)[None, :] < n_holes[:, None]
         w = php[..., 4] ** 2 * valid
-        idx = torch.multinomial(w, n, replacement=True, generator=gen)          # [rows, n]
+        idx = multinomial(w, n, True, gen)                                      # [rows, n]
         hole = torch.gather(php, 1, idx[..., None].expand(-1, -1, 5))            # [rows, n, 5]
         thetas = _unit(gen, (rows, n)) * (2 * math.pi)
         r0 = hole[..., 4] * (1 + hole[..., 0] * torch.cos(4 * thetas)
@@ -162,7 +161,7 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
         ys = _scaled(_unit(gen, (rows, 3 * n)), dom.ymin, dom.ymax)
         xy = torch.stack([xs, ys], dim=-1)
         outside = (~in_any_hole(xy, php, n_holes)).to(xy.dtype)
-        idx = torch.multinomial(outside, n, replacement=replace, generator=gen)
+        idx = multinomial(outside, n, replace, gen)
         return torch.gather(xy, 1, idx[..., None].expand(-1, -1, 2))
 
     def budget(n):

@@ -38,7 +38,7 @@ from ..config import TaskConfig
 from ..solvers import fem_td_burgers, fv_burgers
 from . import frozen
 from .burgers_formulations import get_formulation
-from .registry import PdeDef
+from .registry import PdeDef, constant
 
 
 def _uniform(gen, shape, lo, hi):
@@ -93,7 +93,7 @@ def make_pde(cfg: TaskConfig) -> PdeDef:
 
     def initial(xs):
         rows = xs.shape[0]
-        wall_x = torch.tensor([dom.xmin, dom.xmax], device=xs.device).expand(rows, 2)
+        wall_x = constant([dom.xmin, dom.xmax], xs.device).expand(rows, 2)
         x = torch.cat([xs, wall_x], dim=1)
         return torch.stack([x, torch.zeros_like(x)], dim=-1)
 

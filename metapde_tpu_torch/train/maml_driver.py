@@ -15,14 +15,22 @@ Reference semantics kept:
   (make_coef_func_batched, the JAX package's vmap of make_coef_func); the
   learned-LR adaptation itself stays a per-task loop.
 
-Tasks and points are drawn on the host from one torch.Generator seeded with
-cfg.seed (after the init draws), so a CPU run and a card run train on the
-same tasks; draw_step_inputs moves one outer step's draws to the device
-(pinned, without a host wait). JAX's key chain is not reproduced: each
-outer step draws T = bsize tasks, and per task the K + 1 inner and K + 1
-outer point sets the JAX chain consumes (one per inner step and one for the
-final inner loss; one outer set per step and the outer_loss_key aux set).
-step_core takes those draws as an argument, so tests pass JAX's own draws.
+Each outer step draws T = bsize tasks, and per task the K + 1 inner and
+K + 1 outer point sets the JAX key chain consumes (one per inner step and
+one for the final inner loss; one outer set per step and the
+outer_loss_key aux set); the chain itself is not reproduced. The caller's
+generator (on the host, seeded with cfg.seed after the init draws) draws
+the task params, so a CPU run and a card run train on the same tasks.
+The point sets come from the same generator on a CPU build (draw_host).
+On a card build they are drawn on the card (draw_seeded), from a device
+generator that one draw of the host generator seeds, so nothing waits on
+the host's draw and only the task params are copied; they are then other
+points than a CPU run's, of the same laws. draw_all(gen) gives what
+draw_step_inputs(gen) feeds the step, as host tensors, bit for bit, and
+leaves gen in the same state. The validation draw, the deployment's points
+and the CPU builds that parity checks draw from stay on the host, so CPU
+and card see the same points there. step_core takes the draws as an
+argument, so tests pass JAX's own draws.
 
 run() is the loop of train/loop.py on MAML's state.
 
@@ -37,16 +45,19 @@ deploy.n_starts > 1 wraps the deployment in the multi-start
 
 A mesh (mesh.n_task_shards or n_point_shards > 1) shards the training step
 over the ranks of a torch.distributed process group (parallel/): every
-rank draws the whole step on the host and keeps its tasks and points
-(shard_batch), the sharded grad fn runs on rank_device(device), and every
-rank ends the step with the same state. validation_losses, the deployment
-and make_coef_func* stay unsharded, as in the JAX package; run() validates
-and writes on rank 0 (train/loop.py). Without a process group a mesh
-raises, naming torchrun. train.viz_every renders the ground-truth plots
-of train/viz.py on rank 0 (the adaptation from a generator seeded 0, as the
-JAX driver adapts from PRNGKey(0)); train.profile_dir writes a
+rank draws the whole step (on a card from the same seed) and keeps its
+tasks and points (shard_batch), the sharded grad fn runs on
+rank_device(device), and every rank ends the step with the same state.
+validation_losses, the deployment and make_coef_func* stay unsharded, as
+in the JAX package; run() validates and writes on rank 0
+(train/loop.py). Without a process group a mesh raises, naming torchrun.
+train.viz_every renders the ground-truth plots of train/viz.py on rank 0
+(the adaptation from a generator seeded 0, as the JAX driver adapts from
+PRNGKey(0)); train.profile_dir writes a
 torch.profiler trace of loop iterations 1 .. profile_steps (train/loop.py).
 """
+
+from functools import partial
 
 import torch
 
@@ -93,28 +104,59 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
     lr_opt = adam(cfg.maml.lr_inner_lr, b1=0.9, b2=0.99)
 
     # --- train step ---------------------------------------------------------
-    def draw_all(gen):
-        """One outer step's draws for T = bsize tasks, from `gen` (on the
-        host by default): a maml.TaskBatch."""
-        n_sets = cfg.maml.inner_steps + 1
+    n_sets = cfg.maml.inner_steps + 1
+    # the card's point generator, re-seeded from the host generator at every draw
+    card_gen = torch.Generator(device=device) if device.type == "cuda" else None
+
+    def draw_task_params(gen):
+        return tree_stack([pde.sample_params(gen) for _ in range(cfg.maml.bsize)])
+
+    def draw_points(gen, task_params):
+        """The tasks' inner and outer point sets from `gen`, on its device:
+        a maml.TaskBatch."""
+        return maml.TaskBatch(
+            task_params=task_params,
+            inner_points=pde.sample_points_batched(gen, cfg.task.inner_points,
+                                                   task_params, n_sets),
+            outer_points=pde.sample_points_batched(gen, cfg.task.outer_points,
+                                                   task_params, n_sets))
+
+    def draw_host(gen):
+        """One outer step's draws for T = bsize tasks, all from `gen` (on
+        the host by default)."""
         with spans.span("draw.sample"):
-            tps = [pde.sample_params(gen) for _ in range(cfg.maml.bsize)]
-            task_params = tree_stack(tps)
-            return maml.TaskBatch(
-                task_params=task_params,
-                inner_points=pde.sample_points_batched(gen, cfg.task.inner_points,
-                                                       task_params, n_sets),
-                outer_points=pde.sample_points_batched(gen, cfg.task.outer_points,
-                                                       task_params, n_sets))
+            return draw_points(gen, draw_task_params(gen))
+
+    def draw_seeded(gen, points_gen):
+        """draw_host's task params from `gen`; the point sets from
+        `points_gen`, seeded with one 63-bit draw of `gen` (on the host, so
+        nothing is read from a device), on the task params sent to its
+        device."""
+        with spans.span("draw.sample"):
+            task_params = draw_task_params(gen)
+            points_gen.manual_seed(int(torch.randint(2 ** 63 - 1, (), generator=gen)))
+            return draw_points(points_gen, loop.to_device(task_params, points_gen.device))
+
+    # the build's draw, by its device: the point sets on the card on a CUDA build
+    draw = draw_host if card_gen is None else partial(draw_seeded, points_gen=card_gen)
+
+    def draw_all(gen):
+        """The draws draw_step_inputs(gen) feeds the step, on the host, from
+        `gen` in the same state and leaving it in the same state."""
+        return tree_map(lambda t: t.cpu(), draw(gen))
 
     def draw_step_inputs(gen):
-        """draw_all's batch on the device; under a mesh this rank's share.
-        The span `draw` begins an outer step."""
+        """One outer step's draws on the device (on a card, point sets drawn
+        there, counted as `draw.on_device`); under a mesh this rank's
+        share. The span `draw` begins an outer step."""
         with spans.span("draw", new_step=True):
-            batch = draw_all(gen)
+            if card_gen is not None:
+                spans.count("draw.on_device")
+            batch = draw(gen)
             if mesh is not None:
                 batch = shard_batch(batch, mesh, pde.pooled_kinds)
-            return loop.to_device(batch, device)
+            # a card's draw is on the device already
+            return batch if card_gen is not None else loop.to_device(batch, device)
 
     if mesh is None:
         def grad_fn(batch, params, lrs):
@@ -160,8 +202,9 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
 
     def validation_losses(params, lrs):
         """Losses and meta-losses (no meta-gradient) on a fixed draw from a
-        generator seeded 0 (the JAX package's PRNGKey(0))."""
-        batch = loop.to_device(draw_all(torch.Generator().manual_seed(0)), device)
+        generator seeded 0 (the JAX package's PRNGKey(0)), drawn on the host
+        on either device."""
+        batch = loop.to_device(draw_host(torch.Generator().manual_seed(0)), device)
         _, losses, meta_losses = maml.multi_task_grad_and_losses(
             maml_def, task_loss, batch, params, lrs, need_grad=False)
         return losses, meta_losses
@@ -225,6 +268,8 @@ def build(cfg: Config, device=DEFAULT_DEVICE):
         inner_lrs=inner_lrs,
         outer_opt=outer_opt,
         lr_opt=lr_opt,
+        draw_host=draw_host,
+        draw_seeded=draw_seeded,
         draw_all=draw_all,
         draw_step_inputs=draw_step_inputs,
         grad_fn=grad_fn,
